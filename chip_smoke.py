@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one card and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result lines):
+  1. device: a CUDA card is required; prints its name and power limit.
+  2. build: compiles every CUDA kernel of the main path from csrc/.
+  3. kernels: each kernel against its plain torch version at the main
+     path's shapes (all 4 levels of a rendered 752x480 pair, N=150, with
+     features near the borders and guesses that hit the window clamp),
+     then CUDA-event timings of both and the kernel's bound.
+  4. slice: the RAW stereo+IMU System on 30 rendered 752x480 frames
+     (seed 0, 200 Hz IMU with noise, 300 landmarks, VioConfig defaults,
+     estimator in float32; landmark blobs of sigma 3.2 px, the 1.6 px of
+     the 376x240 tests scaled to this resolution, see PERF.md): counts
+     kernel launches on the main path,
+     checks features, finiteness and the unaligned ATE gate, and prints
+     steady-state ms/frame, stage means and peak device memory.
+Prints one JSON line describing the kernels, then, last, the result line
+{"ok": true, "device": {...}}.
+
+Imports nothing of JAX nor of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SEED = 0
+FRAMES = 30
+STEADY_FROM = 15
+N_FEAT = 150
+ATE_GATE_M = 0.20
+# landmark blob sigma: the renderer's 1.6 px default is sized for the
+# 376x240 rig of the tests; at 752x480 the same scene has 3.2 px blobs
+BLOB_SIGMA_PX = 3.2
+FLOW_ATOL_PX = 1e-3
+# H100 SXM published peaks (700 W): HBM bytes/s, float32 non-tensor flop/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+LK_TPU_KERNEL = "dynamic_vins_tpu/ops/lk_pallas.py:133"
+
+
+def fail(msg: str):
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def device_phase(torch):
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    if not (REPO / "dynamic_vins_tpu_torch").is_dir():
+        fail(f"no dynamic_vins_tpu_torch package next to {__file__}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    return card
+
+
+def build_phase():
+    from dynamic_vins_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    build.build("lk_level", force=True)
+    print(f"build lk_level: {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in build.build_logs.get("lk_level", "").splitlines():
+        if "registers" in line or "smem" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+
+def make_scene(torch, dev, sigma=BLOB_SIGMA_PX):
+    """The slice's sequence, its rendered stereo frames (numpy) and its
+    per-frame IMU intervals."""
+    from dynamic_vins_tpu_torch.sim import frontend_sim, render
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+
+    seq = sim.generate_sequence(num_frames=FRAMES, imu_hz=200.0,
+                                acc_noise=0.05, gyr_noise=0.005,
+                                num_landmarks=300, seed=SEED)
+    inten = render.make_intensities(300, seed=SEED)
+    rig = seq.rig.to(dev)
+    lms = seq.landmarks.to(dev)
+    imgs = []
+    for k in range(FRAMES):
+        p, q = seq.gt_p[k].to(dev), seq.gt_q[k].to(dev)
+        imgs.append(tuple(
+            render.render_frame(rig, p, q, lms, inten, cam=c, sigma=sigma)
+            .cpu().numpy() for c in (0, 1)))
+    return seq, imgs, frontend_sim.imu_intervals(seq)
+
+
+def _timed(torch, fn, reps):
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _mark_patch(mask, oy, ox, ly, lx, P):
+    """Mark in mask [H,W] the input pixels that bilinear P x P patches at
+    window-local top-left (ly, lx) of the windows at (oy, ox) read: the
+    (P+1)^2 taps inside the window, with the padded image's edge copies
+    mapped back to the input's edge pixels."""
+    import torch
+
+    from dynamic_vins_tpu_torch.ops.lk_level import WIN_H, WIN_W
+
+    H, W = mask.shape
+    ar = torch.arange(P + 1, device=mask.device)
+    r = torch.floor(ly).long()[:, None] + ar
+    c = torch.floor(lx).long()[:, None] + ar
+    rows = (oy.long()[:, None] + r.clamp(0, WIN_H - 1)).clamp_max(H - 1)
+    cols = (ox.long()[:, None] + c.clamp(0, WIN_W - 1)).clamp_max(W - 1)
+    inwin = (((r >= 0) & (r < WIN_H))[:, :, None]
+             & ((c >= 0) & (c < WIN_W))[:, None, :])
+    mask.view(-1)[(rows[:, :, None] * W + cols[:, None, :])[inwin]] = True
+
+
+def lk_bytes(a, b, p, g, radius, iters):
+    """Bytes one LK level must move on these inputs: the distinct img0
+    pixels its template and +-1 px gradient patches read, the distinct
+    img1 pixels its patches read over all `iters` iterations (each at
+    the flow the iteration starts from, window clamp included), once
+    each, plus pts and guess in and flow and ok out."""
+    import torch
+
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+
+    P = 2 * radius + 1
+    _, _, meta = K.prepare(a, b, p, g)
+    oy0, ox0, oy1, ox1 = meta.unbind(dim=1)
+    x, y = p[:, 0], p[:, 1]
+    m0 = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+    tl_y = (y - oy0.to(y.dtype)) - radius
+    tl_x = (x - ox0.to(x.dtype)) - radius
+    for dy, dx in ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0)):
+        _mark_patch(m0, oy0, ox0, tl_y + dy, tl_x + dx, P)
+    m1 = torch.zeros_like(m0)
+    for it in range(iters):
+        f = K.lk_level_plain(a, b, p, g, radius, it)[0]
+        l1y = torch.clamp(((y + f[:, 1]) - oy1.to(y.dtype)) - radius, 0.0,
+                          K.WIN_H - P - 2.0)
+        l1x = torch.clamp(((x + f[:, 0]) - ox1.to(x.dtype)) - radius, 0.0,
+                          K.WIN_W - P - 2.0)
+        _mark_patch(m1, oy1, ox1, l1y, l1x, P)
+    n = p.shape[0]
+    return 4 * int(m0.sum() + m1.sum()) + 3 * n * 8 + n
+
+
+def lk_bound_ms(nbytes, n, radius, iters):
+    """(bytes time, operations time) of one level, ms: `nbytes` at peak
+    HBM rate; the flops of the bilinear samples and reductions at
+    float32 non-tensor peak. The bound is the larger."""
+    P2 = (2 * radius + 1) ** 2
+    sample = 11                      # 3 lerps + the two (1 - f) terms
+    flops = n * P2 * (5 * sample + 4 + 6 + iters * (sample + 5))
+    return 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+
+
+def kernel_phase(torch, dev, imgs):
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.frontend import corners, pyramid
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    img0, img1 = f32(imgs[10][0]), f32(imgs[11][0])
+    cpts, _, found = corners.detect(img0, max_corners=N_FEAT, min_dist=16)
+    rng = np.random.default_rng(SEED)
+    pts = cpts.cpu().numpy()
+    nf = int(found.sum())
+    # the unfilled tail: features within 12 px of the borders
+    H, W = img0.shape
+    edge = rng.uniform([1, 1], [W - 1, H - 1], size=(N_FEAT - nf, 2))
+    side = rng.integers(0, 4, size=N_FEAT - nf)
+    d = rng.uniform(0.5, 12.0, size=N_FEAT - nf)
+    edge[side == 0, 0] = d[side == 0]
+    edge[side == 1, 0] = W - d[side == 1]
+    edge[side == 2, 1] = d[side == 2]
+    edge[side == 3, 1] = H - d[side == 3]
+    pts[nf:] = edge
+    pyr0 = pyramid.build_pyramid(img0, 4)
+    pyr1 = pyramid.build_pyramid(img1, 4)
+    per_level = []
+    max_err = 0.0
+    for lvl in range(4):
+        s = 2.0 ** lvl
+        p = f32(pts / s)
+        g = rng.normal(scale=2.0, size=(N_FEAT, 2))
+        g[::7] = [40.0, -30.0]      # hits the img1 window clamp
+        g = f32(g)
+        a, b = pyr0[lvl].contiguous(), pyr1[lvl].contiguous()
+        fk, okk = K.lk_level(a, b, p, g)
+        torch.cuda.synchronize()
+        fp, okp = K.lk_level_plain(a, b, p, g)
+        okk_n, okp_n = okk.cpu().numpy(), okp.cpu().numpy()
+        if not np.array_equal(okk_n, okp_n):
+            fail(f"lk_level ok mask differs from plain at level {lvl}: "
+                 f"{int((okk_n != okp_n).sum())} features")
+        err = float(np.abs(fk.cpu().numpy()[okp_n]
+                           - fp.cpu().numpy()[okp_n]).max())
+        if not err <= FLOW_ATOL_PX:
+            fail(f"lk_level flow differs from plain at level {lvl}: "
+                 f"{err} px > {FLOW_ATOL_PX} px")
+        max_err = max(max_err, err)
+        prep = K.prepare(a, b, p, g)
+        ms = _timed(torch, lambda: K.launch(*prep, p, g), 200)
+        wrap_ms = _timed(torch, lambda: K.lk_level(a, b, p, g), 200)
+        plain_ms = _timed(torch, lambda: K.lk_level_plain(a, b, p, g), 100)
+        nbytes = lk_bytes(a, b, p, g, 10, 10)
+        t_bytes, t_ops = lk_bound_ms(nbytes, N_FEAT, 10, 10)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        per_level.append((ms, plain_ms, max(t_bytes, t_ops), by))
+        print(f"lk_level level {lvl} {a.shape[1]}x{a.shape[0]} N={N_FEAT}:"
+              f" kernel {ms} ms, wrapper (pad + origins + kernel) "
+              f"{wrap_ms} ms, plain {plain_ms} ms, bound "
+              f"{max(t_bytes, t_ops)} ms ({by}; {nbytes} B -> {t_bytes} "
+              f"ms, operations -> {t_ops} ms), max |flow err| {err:.2e} "
+              f"px, ok {int(okp_n.sum())}/{N_FEAT}", flush=True)
+    # a frame's launches: per track levels 3,2,1,0 forward + 0 backward;
+    # the mix's bound is the mean of each launch's bound, and bound_by
+    # the limit that sets the larger part of it
+    mix = [3, 2, 1, 0, 0]
+    mean = lambda i: sum(per_level[l][i] for l in mix) / len(mix)
+    by_part = {k: sum(per_level[l][2] for l in mix if per_level[l][3] == k)
+               for k in ("bytes", "operations")}
+    return dict(ms=mean(0), plain_ms=mean(1), bound_ms=mean(2),
+                bound_by=max(by_part, key=by_part.get), max_abs_err=max_err)
+
+
+def slice_config(rig, cfg):
+    """Fill a VioConfig (EuRoC-shaped defaults: RAW stereo+IMU) with the
+    rig's image size, intrinsics and extrinsics."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.geometry import lie
+
+    cfg.image_width, cfg.image_height = rig.width, rig.height
+    cfg.intrinsics_left = [float(v) for v in rig.intr[:4]]
+    T0, T1 = np.eye(4), np.eye(4)
+    T0[:3, :3] = lie.quat_to_matrix(rig.q_bc).numpy()
+    T0[:3, 3] = rig.p_bc.numpy()
+    pr, qr = rig.right_extrinsics()
+    T1[:3, :3] = lie.quat_to_matrix(qr).numpy()
+    T1[:3, 3] = pr.numpy()
+    cfg.body_T_cam0 = T0.reshape(-1).tolist()
+    cfg.body_T_cam1 = T1.reshape(-1).tolist()
+    return cfg
+
+
+def slice_phase(torch, dev, seq, imgs, imus):
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    rig = seq.rig
+    cfg = slice_config(rig, VioConfig())
+    out_dir = REPO / "output"
+    system = System(cfg, output_prefix=str(out_dir / "chip_smoke"),
+                    device=dev, dtype=torch.float32)
+    print(f"slice: {rig.width}x{rig.height} stereo+IMU RAW, blob sigma "
+          f"{BLOB_SIGMA_PX} px, window "
+          f"{cfg.window_size}, max_cnt {cfg.max_cnt}, estimator dtype "
+          f"{system.estimator.dtype}, LK backend "
+          f"{system.tracker._tracker.backend}", flush=True)
+    system.estimator.set_initial_pose(
+        seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+        sim.state_at(seq.frame_times[0])[2].numpy())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.launches = 0
+    outs, frame_ms = [], []
+    for k in range(FRAMES):
+        if k == STEADY_FROM:
+            system.reset_timers()
+        t0 = time.perf_counter()
+        out = system.process(FrameInput(float(seq.frame_times[k]),
+                                        imgs[k][0], imgs[k][1],
+                                        imu=imus[k]))
+        torch.cuda.synchronize()
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        nfeat = int(system.tracker.valid.sum())
+        if k > 0 and nfeat < 30:
+            fail(f"frame {k}: only {nfeat} features")
+        outs.append(out)
+    launches = K.launches
+    stages = system.close()
+    if launches != 10 * FRAMES:
+        fail(f"lk_level launched {launches} times on the main path, "
+             f"expected {10 * FRAMES}")
+    est = np.stack([o.p for o in outs])
+    if not all(np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
+               for o in outs):
+        fail("non-finite estimator output")
+    if system.estimator.failed:
+        fail("estimator reported failure")
+    ate = frontend_sim.ate_rmse(est, seq.gt_p.numpy())
+    steady = float(np.mean(frame_ms[STEADY_FROM:]))
+    print(f"slice: ATE {ate:.4f} m (unaligned, gate {ATE_GATE_M} m), "
+          f"steady ms/frame (frames {STEADY_FROM}-{FRAMES - 1}) "
+          f"{steady:.2f}, first frame {frame_ms[0]:.1f} ms, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    print("slice: stage means (ms, steady frames):",
+          json.dumps(stages), flush=True)
+    if not ate < ATE_GATE_M:
+        fail(f"ATE {ate} m >= {ATE_GATE_M} m")
+    return launches
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    device_phase(torch)
+    sys.path.insert(0, str(REPO))
+    dev = torch.device("cuda")
+    build_phase()
+    t0 = time.perf_counter()
+    seq, imgs, imus = make_scene(torch, dev)
+    print(f"rendered {FRAMES} stereo frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lk = kernel_phase(torch, dev, imgs)
+    launches = slice_phase(torch, dev, seq, imgs, imus)
+    print(json.dumps({"kernels": [dict(
+        name="lk_level", route="cuda",
+        source="dynamic_vins_tpu_torch/csrc/lk_level.cu",
+        replaces=LK_TPU_KERNEL, launches=launches,
+        max_abs_err=lk["max_abs_err"], ms=lk["ms"],
+        plain_ms=lk["plain_ms"], bound_ms=lk["bound_ms"],
+        bound_by=lk["bound_by"], library_ms=None)]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

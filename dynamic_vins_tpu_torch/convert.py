@@ -1,0 +1,81 @@
+"""Carry parameters from the JAX package's types into the port's.
+
+Parity tests start both packages from identical state. The JAX side
+hands its NamedTuples over as numpy arrays keyed by field name (nested
+dicts for nested tuples, e.g. `{"lin_state": {...}, "jacobian": ...}`);
+these functions return the port's types on a given device and dtype.
+This module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dynamic_vins_tpu_torch.factors.prior import MarginalPrior
+from dynamic_vins_tpu_torch.factors.projection import ProjObs
+from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
+from dynamic_vins_tpu_torch.imu.preintegration import (ImuNoise,
+                                                       Preintegration)
+from dynamic_vins_tpu_torch.solver.gauss_newton import BAProblem
+from dynamic_vins_tpu_torch.solver.layout import WindowState
+
+
+def _f(a, dtype, device):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _x(a, device):
+    """Integer/bool arrays keep their kind (indices become int64)."""
+    a = np.asarray(a)
+    if a.dtype.kind in "iu":
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)
+
+
+def _floats(cls, d, dtype, device):
+    return cls(*(_f(d[k], dtype, device) for k in cls._fields))
+
+
+def intrinsics(d, dtype=torch.float64, device="cpu") -> PinholeIntrinsics:
+    return _floats(PinholeIntrinsics, d, dtype, device)
+
+
+def extrinsics(p_bc, q_bc, dtype=torch.float64, device="cpu"):
+    """(p_bc [2,3], q_bc [2,4]) camera-to-body transforms."""
+    return _f(p_bc, dtype, device), _f(q_bc, dtype, device)
+
+
+def imu_noise(d) -> ImuNoise:
+    return ImuNoise(*(float(d[k]) for k in ImuNoise._fields))
+
+
+def window_state(d, dtype=torch.float64, device="cpu") -> WindowState:
+    return _floats(WindowState, d, dtype, device)
+
+
+def preintegration(d, dtype=torch.float64, device="cpu"):
+    return _floats(Preintegration, d, dtype, device)
+
+
+def marginal_prior(d, dtype=torch.float64, device="cpu") -> MarginalPrior:
+    return MarginalPrior(window_state(d["lin_state"], dtype, device),
+                         _f(d["jacobian"], dtype, device),
+                         _f(d["residual"], dtype, device),
+                         _x(d["valid"], device))
+
+
+def proj_obs(d, dtype=torch.float64, device="cpu") -> ProjObs:
+    ints = ("frame_i", "frame_j", "cam_j", "lm", "valid")
+    return ProjObs(*(_x(d[k], device) if k in ints
+                     else _f(d[k], dtype, device)
+                     for k in ProjObs._fields))
+
+
+def ba_problem(d, dtype=torch.float64, device="cpu") -> BAProblem:
+    return BAProblem(obs=proj_obs(d["obs"], dtype, device),
+                     pres=preintegration(d["pres"], dtype, device),
+                     imu_valid=_x(d["imu_valid"], device),
+                     prior=marginal_prior(d["prior"], dtype, device),
+                     lm_valid=_x(d["lm_valid"], device),
+                     fixed_cols=_x(d["fixed_cols"], device))

@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Unaligned ATE of the chip_smoke.py slice scenario (752x480 rendered
+stereo + IMU, seed 0, 300 landmarks, RAW System with VioConfig defaults)
+through the port or through the JAX package, for any blob size.
+
+    python tests/scenario_ate.py --impl torch --sigma 3.2 --dtype f32 --lk plain
+    python tests/scenario_ate.py --impl torch --device cuda --sigma 1.6
+    python tests/scenario_ate.py --impl jax --sigma 1.6
+    python tests/scenario_ate.py --impl both --sigma 1.6 --no-ransac-f
+
+Prints one line per frame (features, position error) and, last, the
+ATE. The port runs on --device (default cpu) with its estimator in
+--dtype and its LK in --lk; the JAX System runs on the CPU in float64
+with its multi-dispatch estimator path (`use_megastep = False`).
+RANSAC-F is each side's own (OpenCV on the JAX side, where installed),
+or off on both with --no-ransac-f. `--impl both` runs the two on the
+same frames and prints, per frame, where they part: the tracked slot
+sets, the largest point difference over slots valid on both sides, and
+the distance between the two position estimates.
+The torch path imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+
+def _frame(tracker, out):
+    """What one frame leaves: tracked slots, their points, the position."""
+    return dict(valid=tracker.valid.copy(),
+                pts=np.asarray(tracker.pts, np.float64),
+                p=np.asarray(out.p, np.float64))
+
+
+def _report(gt, out, failed, what):
+    for k, f in enumerate(out):
+        print(f"frame {k:2d} features {int(f['valid'].sum()):3d} position "
+              f"error {np.linalg.norm(f['p'] - gt[k]):.4f} m", flush=True)
+    est = np.stack([f["p"] for f in out])
+    ate = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=-1))))
+    print(f"{what}: ATE {ate:.4f} m, failed {failed}", flush=True)
+
+
+def _compare(out_t, out_j):
+    """Per frame: slots valid on one side only, the largest point
+    difference over slots valid on both, and |p_torch - p_jax|."""
+    for k, (t, j) in enumerate(zip(out_t, out_j)):
+        both = t["valid"] & j["valid"]
+        dpts = float(np.abs(t["pts"][both] - j["pts"][both]).max()) \
+            if both.any() else 0.0
+        print(f"frame {k:2d} slots torch-only "
+              f"{int((t['valid'] & ~j['valid']).sum()):3d} jax-only "
+              f"{int((j['valid'] & ~t['valid']).sum()):3d} max |pts diff| "
+              f"{dpts:.3e} px |p_torch - p_jax| "
+              f"{np.linalg.norm(t['p'] - j['p']):.3e} m", flush=True)
+
+
+def run_torch(args):
+    import torch
+
+    from dynamic_vins_tpu_torch.frontend import lk
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    dev = torch.device(args.device)
+    seq, imgs, imus = chip_smoke.make_scene(torch, dev, sigma=args.sigma)
+    dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
+    system = System(chip_smoke.slice_config(seq.rig, VioConfig()),
+                    output_prefix=args.out + "_torch", device=dev,
+                    dtype=dtype)
+    tc = system.tracker.cfg
+    tc.use_ransac_f = not args.no_ransac_f
+    system.tracker._tracker = lk.make_tracker(
+        tc.levels, tc.radius, tc.iters, tc.fb_thresh, tc.border,
+        backend=args.lk, device=dev)
+    system.estimator.set_initial_pose(
+        seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+        sim.state_at(seq.frame_times[0])[2].numpy())
+    out = []
+    for k in range(chip_smoke.FRAMES):
+        o = system.process(FrameInput(float(seq.frame_times[k]),
+                                      imgs[k][0], imgs[k][1], imu=imus[k]))
+        out.append(_frame(system.tracker, o))
+    system.close()
+    return seq.gt_p.numpy(), out, system.estimator.failed
+
+
+def run_jax(args):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+
+    from dynamic_vins_tpu.geometry import lie
+    from dynamic_vins_tpu.sim import frontend_sim, render
+    from dynamic_vins_tpu.sim import synthetic as sim
+    from dynamic_vins_tpu.system import FrameInput, System
+    from dynamic_vins_tpu.utils.config import VioConfig
+
+    n = chip_smoke.FRAMES
+    seq = sim.generate_sequence(num_frames=n, imu_hz=200.0, acc_noise=0.05,
+                                gyr_noise=0.005, num_landmarks=300,
+                                seed=chip_smoke.SEED)
+    inten = render.make_intensities(300, seed=chip_smoke.SEED)
+    rig = seq.rig
+    cfg = VioConfig()
+    cfg.image_width, cfg.image_height = rig.width, rig.height
+    cfg.intrinsics_left = [float(rig.intr.fx), float(rig.intr.fy),
+                           float(rig.intr.cx), float(rig.intr.cy)]
+    T0, T1 = np.eye(4), np.eye(4)
+    T0[:3, :3] = np.asarray(lie.quat_to_matrix(rig.q_bc))
+    T0[:3, 3] = np.asarray(rig.p_bc)
+    pr, qr = rig.right_extrinsics()
+    T1[:3, :3] = np.asarray(lie.quat_to_matrix(qr))
+    T1[:3, 3] = np.asarray(pr)
+    cfg.body_T_cam0 = T0.reshape(-1).tolist()
+    cfg.body_T_cam1 = T1.reshape(-1).tolist()
+    system = System(cfg, output_prefix=args.out + "_jax")
+    system.estimator.cfg.use_megastep = False
+    system.tracker.cfg.use_ransac_f = not args.no_ransac_f
+    system.estimator.set_initial_pose(
+        np.asarray(seq.gt_p[0]), np.asarray(seq.gt_q[0]),
+        np.asarray(sim.state_at(seq.frame_times[0])[2]))
+    draw = jax.jit(lambda p, q, c: render.render_frame(
+        rig, p, q, seq.landmarks, inten, cam=c, sigma=args.sigma),
+        static_argnums=2)
+    frames_imu = frontend_sim.make_frames(seq)
+    out = []
+    for k in range(n):
+        il = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 0))
+        ir = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 1))
+        o = system.process(FrameInput(float(seq.frame_times[k]), il, ir,
+                                      imu=frames_imu[k][1]))
+        out.append(_frame(system.tracker, o))
+    system.close()
+    return np.asarray(seq.gt_p), out, system.estimator.failed
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--impl", choices=("torch", "jax", "both"),
+                    default="torch")
+    ap.add_argument("--sigma", type=float, default=chip_smoke.BLOB_SIGMA_PX)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--dtype", choices=("f32", "f64"), default="f64")
+    ap.add_argument("--lk", choices=("auto", "xla", "plain", "cuda"),
+                    default="auto")
+    ap.add_argument("--no-ransac-f", action="store_true",
+                    help="turn RANSAC-F off on both sides")
+    ap.add_argument("--out", default="output/scenario_ate")
+    args = ap.parse_args()
+    tag = f"sigma {args.sigma} ransac-f {not args.no_ransac_f}"
+    runs = {}
+    if args.impl in ("torch", "both"):
+        runs["torch"] = run_torch(args)
+        _report(*runs["torch"], f"torch {args.device} {args.dtype} lk "
+                f"{args.lk} {tag}")
+    if args.impl in ("jax", "both"):
+        runs["jax"] = run_jax(args)
+        _report(*runs["jax"], f"jax cpu f64 {tag}")
+    if args.impl == "both":
+        _compare(runs["torch"][1], runs["jax"][1])
+
+
+if __name__ == "__main__":
+    main()

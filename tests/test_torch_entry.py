@@ -1,0 +1,73 @@
+"""The port's entry points: they run on the CUDA device unless asked for
+the CPU (and raise without a card rather than land on the CPU), and the
+switches of paths not ported yet raise NotImplementedError naming their
+ROADMAP item."""
+
+import numpy as np
+import pytest
+import torch
+
+from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                        EstimatorConfig)
+from dynamic_vins_tpu_torch.frontend.tracker import (FeatureTracker,
+                                                     TrackerConfig)
+from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
+from dynamic_vins_tpu_torch.system import System
+from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
+
+torch.set_num_threads(1)   # the xdist workers share the cores
+
+P_BC = np.zeros((2, 3))
+Q_BC = np.tile([1.0, 0.0, 0.0, 0.0], (2, 1))
+INTR = PinholeIntrinsics.make(460.0, 460.0, 376.0, 240.0)
+
+ENTRY = {
+    "system": lambda **kw: System(VioConfig(), output_prefix=kw.pop("out"),
+                                  **kw),
+    "estimator": lambda **kw: Estimator(EstimatorConfig(num_frames=4),
+                                        P_BC, Q_BC, device=kw.get("device")),
+    "tracker": lambda **kw: FeatureTracker(TrackerConfig(), INTR,
+                                           device=kw.get("device")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY))
+def test_default_device_is_cuda(name, tmp_path):
+    out = str(tmp_path / "run")
+    obj = ENTRY[name](device="cpu", out=out)
+    assert obj.device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert ENTRY[name](out=out).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ENTRY[name](out=out)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("field", ["pipelined", "use_line", "use_dense_flow",
+                                   "use_loop_closure", "det2d_online"])
+def test_unported_system_switches_raise(field, tmp_path):
+    cfg = VioConfig()
+    setattr(cfg, field, True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+
+
+@pytest.mark.parametrize("mode", [SlamMode.NAIVE, SlamMode.DYNAMIC])
+def test_unported_modes_raise(mode, tmp_path):
+    cfg = VioConfig()
+    cfg.slam = mode
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(use_megastep=True),
+                                dict(pipelined=True), dict(use_line=True),
+                                dict(dynamic=True),
+                                dict(calibrate_extrinsic_rotation=True),
+                                dict(stereo=False)])
+def test_unported_estimator_paths_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Estimator(EstimatorConfig(num_frames=4, **kw), P_BC, Q_BC,
+                  device="cpu")

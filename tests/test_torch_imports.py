@@ -1,0 +1,55 @@
+"""The port stands alone: importing it (and every module in it) loads
+neither JAX nor the JAX package, and no source of the port or of
+chip_smoke.py names them in an import.
+
+The import check runs in a subprocess: this test process already has
+JAX loaded by the repository's conftest."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "dynamic_vins_tpu_torch"
+BANNED = ("jax", "jaxlib", "dynamic_vins_tpu", "cv2", "yaml")
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        "import dynamic_vins_tpu_torch\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_nothing_banned(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in BANNED[:3], f"{path}:{node.lineno} {name}"

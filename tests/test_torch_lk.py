@@ -1,0 +1,171 @@
+"""Port parity: the LK level (kernel's plain version against the Pallas
+kernel in interpret mode), the Scharr LK level, pyramid and corners.
+
+The plain version follows the Pallas formulation (central-difference
+gradients of bilinear window patches, zero outside the window, clamped
+img1 patch origin), not the Scharr form; the Scharr `_lk_level` is held
+against the JAX XLA path separately. Flows agree within 1e-3 px (both
+float32, sums in other orders), `ok` exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamic_vins_tpu.frontend import corners as jcorners
+from dynamic_vins_tpu.frontend import lk as jlk
+from dynamic_vins_tpu.frontend import pyramid as jpyr
+from dynamic_vins_tpu.ops import lk_pallas
+from dynamic_vins_tpu_torch.frontend import corners as tcorners
+from dynamic_vins_tpu_torch.frontend import lk as tlk
+from dynamic_vins_tpu_torch.frontend import pyramid as tpyr
+from dynamic_vins_tpu_torch.ops import lk_level as tk
+
+torch.set_num_threads(1)   # the xdist workers share the cores
+
+FLOW_ATOL = 1e-3
+
+
+def _pair(shift=(3.2, -2.4), seed=0, H=240, W=320):
+    rng = np.random.default_rng(seed)
+    img0 = jpyr.gaussian_blur5(
+        jnp.asarray(rng.uniform(0, 255, (H, W)), jnp.float32))
+    yy, xx = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32),
+                          jnp.arange(W, dtype=jnp.float32), indexing="ij")
+    img1 = jpyr.bilinear_sample(
+        img0, jnp.stack([xx - shift[0], yy - shift[1]], -1))
+    return np.asarray(img0), np.asarray(img1)
+
+
+def _pts(rng, n, lo, hi):
+    return np.stack([rng.uniform(lo[0], hi[0], n),
+                     rng.uniform(lo[1], hi[1], n)], -1).astype(np.float32)
+
+
+def _cases():
+    """(img0, img1, pts, guess, iters): the three tests/test_lk_pallas.py
+    cases plus a border/clamp case at a coarse-level image size."""
+    out = []
+    img0, img1 = _pair()
+    out.append((img0, img1, _pts(np.random.default_rng(1), 32, (80, 80),
+                                 (240, 160)), np.zeros((32, 2), np.float32),
+                12))
+    img0, img1 = _pair(seed=3)
+    out.append((img0, img1, _pts(np.random.default_rng(2), 16, (100, 100),
+                                 (220, 140)), np.zeros((16, 2), np.float32),
+                10))
+    img0, img1 = _pair(shift=(14.0, 6.0), seed=5)
+    out.append((img0, img1, _pts(np.random.default_rng(4), 16, (100, 80),
+                                 (220, 150)),
+                np.tile(np.float32([[12.0, 5.0]]), (16, 1)), 12))
+    # 60 x 94 (a 752x480 level-3 image): features within 12 px of every
+    # border, guesses large enough to hit the img1 window clamp
+    img0, img1 = _pair(shift=(1.5, -1.0), seed=7, H=60, W=94)
+    rng = np.random.default_rng(8)
+    pts = np.concatenate([
+        _pts(rng, 12, (1, 1), (12, 59)), _pts(rng, 12, (82, 1), (93, 59)),
+        _pts(rng, 12, (1, 1), (93, 12)), _pts(rng, 12, (1, 48), (93, 59)),
+        _pts(rng, 16, (12, 12), (82, 48))])
+    guess = rng.normal(scale=3.0, size=pts.shape).astype(np.float32)
+    guess[::5] = np.float32([[40.0, -30.0]])
+    out.append((img0, img1, pts, guess, 10))
+    return out
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_plain_level_matches_pallas_interpret(case):
+    img0, img1, pts, guess, iters = _cases()[case]
+    fj, okj = lk_pallas.lk_level(jnp.asarray(img0), jnp.asarray(img1),
+                                 jnp.asarray(pts), jnp.asarray(guess),
+                                 radius=10, iters=iters, interpret=True)
+    T = torch.tensor
+    ft, okt = tk.lk_level_plain(T(img0), T(img1), T(pts), T(guess),
+                                radius=10, iters=iters)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    ok = np.asarray(okj)
+    np.testing.assert_allclose(ft.numpy()[ok], np.asarray(fj)[ok], rtol=0,
+                               atol=FLOW_ATOL)
+
+
+def test_wrapper_runs_plain_on_cpu_without_launching():
+    img0, img1, pts, guess, iters = _cases()[3]
+    T = torch.tensor
+    before = tk.launches
+    f1, ok1 = tk.lk_level(T(img0), T(img1), T(pts), T(guess), 10, iters)
+    f2, ok2 = tk.lk_level_plain(T(img0), T(img1), T(pts), T(guess), 10,
+                                iters)
+    assert tk.launches == before
+    np.testing.assert_array_equal(f1.numpy(), f2.numpy())
+    np.testing.assert_array_equal(ok1.numpy(), ok2.numpy())
+    with pytest.raises(TypeError):
+        tk.lk_level(T(img0).double(), T(img1), T(pts), T(guess))
+
+
+def test_scharr_level_matches_xla():
+    img0, img1, pts, guess, _ = _cases()[2]
+    gj, okj = jlk._lk_level(jnp.asarray(img0), jnp.asarray(img1),
+                            jnp.asarray(pts), jnp.asarray(guess), 10, 10)
+    T = torch.tensor
+    gt, okt = tlk._lk_level(T(img0), T(img1), T(pts), T(guess), 10, 10)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=0,
+                               atol=FLOW_ATOL)
+
+
+def test_pyramid_and_gradients_match():
+    img0, _ = _pair(seed=9, H=120, W=150)
+    pj = jpyr.build_pyramid(jnp.asarray(img0), 4)
+    pt = tpyr.build_pyramid(torch.tensor(img0), 4)
+    for a, b in zip(pj, pt):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-4)
+    for a, b in zip(jpyr.scharr_gradients(jnp.asarray(img0)),
+                    tpyr.scharr_gradients(torch.tensor(img0))):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-4)
+    m = np.random.default_rng(0).uniform(size=(40, 50)) > 0.7
+    for it in (1, 3):
+        np.testing.assert_array_equal(
+            tpyr.dilate3(torch.tensor(m), it).numpy(),
+            np.asarray(jpyr.dilate3(jnp.asarray(m), it)))
+        np.testing.assert_array_equal(
+            tpyr.erode3(torch.tensor(m), it).numpy(),
+            np.asarray(jpyr.erode3(jnp.asarray(m), it)))
+
+
+def test_full_track_matches_xla():
+    img0, img1 = _pair(shift=(5.0, 2.0), seed=11)
+    pts = _pts(np.random.default_rng(12), 40, (20, 20), (300, 220))
+    valid = np.ones(40, bool)
+    valid[::7] = False
+    run_j = jlk.make_tracker(levels=3, backend="xla")
+    run_t = tlk.make_tracker(levels=3, backend="auto", device="cpu")
+    assert run_t.backend == "xla"
+    pj, okj = run_j(jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(pts),
+                    jnp.asarray(valid))
+    T = torch.tensor
+    pt, okt = run_t(T(img0), T(img1), T(pts), T(valid))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0,
+                               atol=FLOW_ATOL)
+
+
+def test_corner_detection_matches():
+    img0, _ = _pair(seed=13)
+    ex = _pts(np.random.default_rng(14), 30, (0, 0), (320, 240))
+    exv = np.random.default_rng(15).uniform(size=30) > 0.3
+    pj, sj, fj = jcorners.detect(jnp.asarray(img0), max_corners=150,
+                                 min_dist=16, exclude_pts=jnp.asarray(ex),
+                                 exclude_valid=jnp.asarray(exv), border=8)
+    pt, st, ft = tcorners.detect(torch.tensor(img0), max_corners=150,
+                                 min_dist=16, exclude_pts=torch.tensor(ex),
+                                 exclude_valid=torch.tensor(exv), border=8)
+    np.testing.assert_array_equal(ft.numpy(), np.asarray(fj))
+    f = np.asarray(fj)
+    np.testing.assert_array_equal(pt.numpy()[f], np.asarray(pj)[f])
+    # the min-eigenvalue response is a float32 difference (tr - sqrt)
+    # that cancels: compare against the map's scale
+    sj = np.asarray(sj)
+    np.testing.assert_allclose(st.numpy()[f], sj[f], rtol=0,
+                               atol=1e-4 * np.abs(sj).max())
