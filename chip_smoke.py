@@ -7,14 +7,19 @@ Phases (any failure exits non-zero before the result lines):
   1. device: a CUDA card is required; prints its name and power limit.
   2. build: compiles every CUDA kernel of the main path from csrc/.
   3. kernels: each kernel against its plain torch version at the main
-     path's shapes (all 4 levels of a rendered 752x480 pair, N=150, with
-     features near the borders and guesses that hit the window clamp),
-     then CUDA-event timings of both and the kernel's bound.
+     path's shapes: the level kernel at all 4 levels of a rendered
+     752x480 pair (N=150, features near the borders, guesses that hit
+     the window clamp), the track kernel on the slice's temporal pair
+     (frames 10 -> 11) and stereo pair (frame 11 left -> right) with the
+     same border tail; then CUDA-event timings of kernel, wrapper and
+     plain version, and each kernel's bound.
   4. slice: the RAW stereo+IMU System on 30 rendered 752x480 frames
-     (seed 0, 200 Hz IMU with noise, 300 landmarks, VioConfig defaults,
+     (seed 0, 20 Hz camera, 200 Hz IMU with noise, 300 landmarks,
+     VioConfig defaults,
      estimator in float32; landmark blobs of sigma 3.2 px, the 1.6 px of
      the 376x240 tests scaled to this resolution, see PERF.md): counts
-     kernel launches on the main path,
+     kernel launches on the main path (one track launch per track, two a
+     frame, and no per-level launch),
      checks features, finiteness and the unaligned ATE gate, and prints
      steady-state ms/frame, stage means and peak device memory.
 Prints one JSON line describing the kernels, then, last, the result line
@@ -36,6 +41,10 @@ SEED = 0
 FRAMES = 30
 STEADY_FROM = 15
 N_FEAT = 150
+N_LANDMARKS = 300
+# EuRoC's camera rate; it also gives the pixel motion per frame of the
+# 376x240 tests at 10 Hz (see PERF.md)
+FRAME_HZ = 20.0
 ATE_GATE_M = 0.20
 # landmark blob sigma: the renderer's 1.6 px default is sized for the
 # 376x240 rig of the tests; at 752x480 the same scene has 3.2 px blobs
@@ -81,16 +90,18 @@ def build_phase():
             print("  ptxas:", line.strip(), flush=True)
 
 
-def make_scene(torch, dev, sigma=BLOB_SIGMA_PX):
+def make_scene(torch, dev, sigma=BLOB_SIGMA_PX, landmarks=N_LANDMARKS,
+               frame_hz=FRAME_HZ):
     """The slice's sequence, its rendered stereo frames (numpy) and its
     per-frame IMU intervals."""
     from dynamic_vins_tpu_torch.sim import frontend_sim, render
     from dynamic_vins_tpu_torch.sim import synthetic as sim
 
-    seq = sim.generate_sequence(num_frames=FRAMES, imu_hz=200.0,
+    seq = sim.generate_sequence(num_frames=FRAMES, frame_hz=frame_hz,
+                                imu_hz=200.0,
                                 acc_noise=0.05, gyr_noise=0.005,
-                                num_landmarks=300, seed=SEED)
-    inten = render.make_intensities(300, seed=SEED)
+                                num_landmarks=landmarks, seed=SEED)
+    inten = render.make_intensities(landmarks, seed=SEED)
     rig = seq.rig.to(dev)
     lms = seq.landmarks.to(dev)
     imgs = []
@@ -177,28 +188,42 @@ def lk_bound_ms(nbytes, n, radius, iters):
     return 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
 
 
-def kernel_phase(torch, dev, imgs):
+def track_bound(pyr0, pyr1, pts, valid, fb_levels):
+    """(bound ms, bound_by) of one track: the sum of the bounds of its
+    level launches, each from lk_bytes / lk_bound_ms at the points and
+    guesses the plain track gives that level."""
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+
+    calls = []
+
+    def level(a, b, p, g):
+        calls.append((a, b, p.contiguous(), g))
+        return K.lk_level_plain(a, b, p.contiguous(), g)
+
+    K.pyramid_track(pyr0, pyr1, pts, valid, level, fb_levels=fb_levels)
+    part = {"bytes": 0.0, "operations": 0.0}
+    for a, b, p, g in calls:
+        t_bytes, t_ops = lk_bound_ms(lk_bytes(a, b, p, g, 10, 10),
+                                     p.shape[0], 10, 10)
+        part["bytes" if t_bytes >= t_ops else "operations"] += max(
+            t_bytes, t_ops)
+    return sum(part.values()), max(part, key=part.get)
+
+
+def level_kernel_phase(torch, dev, imgs, rng):
+    """lk_level against its plain version at the 4 levels of the
+    temporal pair; its timings and bounds over a frame's level mix."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.frontend import corners, pyramid
+    from dynamic_vins_tpu_torch.ops import lk_check as C
     from dynamic_vins_tpu_torch.ops import lk_level as K
 
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
     img0, img1 = f32(imgs[10][0]), f32(imgs[11][0])
     cpts, _, found = corners.detect(img0, max_corners=N_FEAT, min_dist=16)
-    rng = np.random.default_rng(SEED)
-    pts = cpts.cpu().numpy()
-    nf = int(found.sum())
-    # the unfilled tail: features within 12 px of the borders
     H, W = img0.shape
-    edge = rng.uniform([1, 1], [W - 1, H - 1], size=(N_FEAT - nf, 2))
-    side = rng.integers(0, 4, size=N_FEAT - nf)
-    d = rng.uniform(0.5, 12.0, size=N_FEAT - nf)
-    edge[side == 0, 0] = d[side == 0]
-    edge[side == 1, 0] = W - d[side == 1]
-    edge[side == 2, 1] = d[side == 2]
-    edge[side == 3, 1] = H - d[side == 3]
-    pts[nf:] = edge
+    pts = C.with_border_tail(cpts.cpu().numpy(), int(found.sum()), H, W, rng)
     pyr0 = pyramid.build_pyramid(img0, 4)
     pyr1 = pyramid.build_pyramid(img1, 4)
     per_level = []
@@ -223,8 +248,9 @@ def kernel_phase(torch, dev, imgs):
             fail(f"lk_level flow differs from plain at level {lvl}: "
                  f"{err} px > {FLOW_ATOL_PX} px")
         max_err = max(max_err, err)
-        prep = K.prepare(a, b, p, g)
-        ms = _timed(torch, lambda: K.launch(*prep, p, g), 200)
+        flow, ok = torch.empty_like(g), torch.empty_like(okk)
+        ms = _timed(torch, lambda: K.launch_level(a, b, p, g, 10, flow, ok),
+                    200)
         wrap_ms = _timed(torch, lambda: K.lk_level(a, b, p, g), 200)
         plain_ms = _timed(torch, lambda: K.lk_level_plain(a, b, p, g), 100)
         nbytes = lk_bytes(a, b, p, g, 10, 10)
@@ -232,20 +258,84 @@ def kernel_phase(torch, dev, imgs):
         by = "bytes" if t_bytes >= t_ops else "operations"
         per_level.append((ms, plain_ms, max(t_bytes, t_ops), by))
         print(f"lk_level level {lvl} {a.shape[1]}x{a.shape[0]} N={N_FEAT}:"
-              f" kernel {ms} ms, wrapper (pad + origins + kernel) "
-              f"{wrap_ms} ms, plain {plain_ms} ms, bound "
-              f"{max(t_bytes, t_ops)} ms ({by}; {nbytes} B -> {t_bytes} "
-              f"ms, operations -> {t_ops} ms), max |flow err| {err:.2e} "
-              f"px, ok {int(okp_n.sum())}/{N_FEAT}", flush=True)
-    # a frame's launches: per track levels 3,2,1,0 forward + 0 backward;
-    # the mix's bound is the mean of each launch's bound, and bound_by
-    # the limit that sets the larger part of it
+              f" kernel {ms} ms, wrapper {wrap_ms} ms, plain {plain_ms} ms, "
+              f"bound {max(t_bytes, t_ops)} ms ({by}; {nbytes} B -> "
+              f"{t_bytes} ms, operations -> {t_ops} ms), max |flow err| "
+              f"{err:.2e} px, ok {int(okp_n.sum())}/{N_FEAT}", flush=True)
+    # the mix of a track's levels: 3, 2, 1, 0 forward + 0 backward; the
+    # mix's bound is the mean of each launch's bound, and bound_by the
+    # limit that sets the larger part of it
     mix = [3, 2, 1, 0, 0]
     mean = lambda i: sum(per_level[l][i] for l in mix) / len(mix)
     by_part = {k: sum(per_level[l][2] for l in mix if per_level[l][3] == k)
                for k in ("bytes", "operations")}
     return dict(ms=mean(0), plain_ms=mean(1), bound_ms=mean(2),
                 bound_by=max(by_part, key=by_part.get), max_abs_err=max_err)
+
+
+def track_kernel_phase(torch, dev, imgs, rng):
+    """lk_track against its plain version on the slice's temporal and
+    stereo pairs; timings and bounds averaged over the two (a frame)."""
+    from dynamic_vins_tpu_torch.frontend import corners, pyramid
+    from dynamic_vins_tpu_torch.frontend.tracker import TrackerConfig
+    from dynamic_vins_tpu_torch.ops import lk_check as C
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+
+    tc = TrackerConfig()        # the main path's LK settings
+    thr, border = tc.fb_thresh, tc.border
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    rows, max_err = [], 0.0
+    for name, (src, dst) in (("temporal 10->11", (imgs[10][0], imgs[11][0])),
+                             ("stereo 11 L->R", (imgs[11][0], imgs[11][1]))):
+        img0, img1 = f32(src), f32(dst)
+        H, W = img0.shape
+        cpts, _, found = corners.detect(img0, max_corners=N_FEAT,
+                                        min_dist=16)
+        pts = f32(C.with_border_tail(cpts.cpu().numpy(), int(found.sum()),
+                                     H, W, rng))
+        valid = torch.ones(N_FEAT, dtype=torch.bool, device=dev)
+        pyr0 = pyramid.build_pyramid(img0, 4)
+        pyr1 = pyramid.build_pyramid(img1, 4)
+        args = (pyr0, pyr1, pts, valid)
+        kw = dict(fb_thresh=thr, border=border, fb_levels=1)
+        before = (K.track_launches, K.launches)
+        kern = K.lk_track(*args, **kw)
+        torch.cuda.synchronize()
+        if (K.track_launches, K.launches) != (before[0] + 1, before[1]):
+            fail("lk_track did not count exactly one track launch")
+        plain = K.lk_track_plain(*args, **kw)
+        near = C.near_threshold(*args, plain[0], thr, border, 1)
+        err, bad, exempt = C.compare_track(kern, plain, near)
+        print(f"lk_track {name}: max |pts1 err| {err:.2e} px, ok differs "
+              f"on {bad} features, and on {exempt} within {C.NEAR_PX} px "
+              f"of a threshold (expected 0)", flush=True)
+        if bad or not err <= FLOW_ATOL_PX:
+            fail(f"lk_track differs from plain on {name}: pts1 {err} px, "
+                 f"ok on {bad} features")
+        max_err = max(max_err, err)
+        pts1, ok = torch.empty_like(kern[0]), torch.empty_like(kern[1])
+        ms = _timed(torch, lambda: K.launch_track(
+            *args, tc.iters, thr, border, 1, pts1, ok), 200)
+        wrap_ms = _timed(torch, lambda: K.lk_track(*args, **kw), 200)
+        plain_ms = _timed(torch, lambda: K.lk_track_plain(*args, **kw), 20)
+        bound, by = track_bound(*args, 1)
+        rows.append((ms, plain_ms, bound, by))
+        print(f"lk_track {name} {W}x{H} N={N_FEAT}: kernel {ms} ms, wrapper "
+              f"{wrap_ms} ms, plain {plain_ms} ms, bound {bound} ms ({by}; "
+              f"sum of its 5 levels), ok {int(plain[1].sum())}/{N_FEAT}",
+              flush=True)
+    mean = lambda i: sum(r[i] for r in rows) / len(rows)
+    by = [r[3] for r in rows]
+    return dict(ms=mean(0), plain_ms=mean(1), bound_ms=mean(2),
+                bound_by=max(set(by), key=by.count), max_abs_err=max_err)
+
+
+def kernel_phase(torch, dev, imgs):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return (level_kernel_phase(torch, dev, imgs, rng),
+            track_kernel_phase(torch, dev, imgs, rng))
 
 
 def slice_config(rig, cfg):
@@ -294,6 +384,7 @@ def slice_phase(torch, dev, seq, imgs, imus):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.launches = 0
+    K.track_launches = 0
     outs, frame_ms = [], []
     for k in range(FRAMES):
         if k == STEADY_FROM:
@@ -308,11 +399,13 @@ def slice_phase(torch, dev, seq, imgs, imus):
         if k > 0 and nfeat < 30:
             fail(f"frame {k}: only {nfeat} features")
         outs.append(out)
-    launches = K.launches
+    launches = dict(lk_level=K.launches, lk_track=K.track_launches)
     stages = system.close()
-    if launches != 10 * FRAMES:
-        fail(f"lk_level launched {launches} times on the main path, "
-             f"expected {10 * FRAMES}")
+    if launches != dict(lk_level=0, lk_track=2 * FRAMES):
+        fail(f"LK kernel launches on the main path: {launches}, expected "
+             f"lk_track {2 * FRAMES} (one a track, two a frame) and no "
+             f"per-level lk_level launch")
+    print(f"slice: kernel launches {json.dumps(launches)}", flush=True)
     est = np.stack([o.p for o in outs])
     if not all(np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
                for o in outs):
@@ -347,15 +440,16 @@ def main():
     seq, imgs, imus = make_scene(torch, dev)
     print(f"rendered {FRAMES} stereo frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    lk = kernel_phase(torch, dev, imgs)
+    timed = dict(zip(("lk_level", "lk_track"),
+                     kernel_phase(torch, dev, imgs)))
     launches = slice_phase(torch, dev, seq, imgs, imus)
     print(json.dumps({"kernels": [dict(
-        name="lk_level", route="cuda",
+        name=name, route="cuda",
         source="dynamic_vins_tpu_torch/csrc/lk_level.cu",
-        replaces=LK_TPU_KERNEL, launches=launches,
-        max_abs_err=lk["max_abs_err"], ms=lk["ms"],
-        plain_ms=lk["plain_ms"], bound_ms=lk["bound_ms"],
-        bound_by=lk["bound_by"], library_ms=None)]}), flush=True)
+        replaces=LK_TPU_KERNEL, launches=launches[name],
+        max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None)
+        for name, k in timed.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

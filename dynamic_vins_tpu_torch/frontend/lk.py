@@ -2,8 +2,10 @@
 
 Pyramidal iterative LK with a forward-backward consistency check and
 border rejection (the reference's FeatureTrackByLK). All features are
-tracked at once; a level is either the CUDA kernel (`ops/lk_level`),
-its plain torch version, or the Scharr/gather form `_lk_level` (the
+tracked at once: by the CUDA track kernel (`ops/lk_level.lk_track`, one
+launch a track), by its plain torch version (`lk_track_plain`, the
+glue `ops/lk_level.pyramid_track` around the windowed level), or by
+`track`, the same glue around the Scharr/gather level `_lk_level` (the
 JAX package's XLA path).
 """
 
@@ -14,6 +16,7 @@ from typing import Sequence
 import torch
 
 from dynamic_vins_tpu_torch.frontend import pyramid as pyr
+from dynamic_vins_tpu_torch.ops import lk_level as K
 
 
 def _lk_level(img0, img1, pts0, guess, radius: int, iters: int):
@@ -46,39 +49,16 @@ def track(pyr0: Sequence[torch.Tensor], pyr1: Sequence[torch.Tensor],
           fb_levels: int | None = None):
     """Track pts from pyramid0 to pyramid1 with a forward-backward check.
 
-    pts [N,2] full-resolution pixels; valid [N] bool. fb_levels: levels
-    of the backward pass (default all); fb_levels=1 seeds the level-0
-    backward track with the negated forward flow. Returns (pts1, ok)."""
-    levels = len(pyr0)
+    pts [N,2] full-resolution pixels; valid [N] bool. level_fn: one
+    pyramid level (default the Scharr/gather `_lk_level`). fb_levels:
+    levels of the backward pass (default all); fb_levels=1 seeds the
+    level-0 backward track with the negated forward flow. Returns
+    (pts1, ok)."""
     if level_fn is None:
         level_fn = lambda a, b, p, g: _lk_level(a, b, p, g, radius, iters)
-    g = torch.zeros_like(pts)
-    ok = valid
-    for lvl in range(levels - 1, -1, -1):
-        s = 2.0 ** lvl
-        if lvl < levels - 1:
-            g = g * 2.0
-        gi, oki = level_fn(pyr0[lvl], pyr1[lvl], pts / s, g)
-        g = torch.where(oki[:, None], gi, g)
-        ok = ok & oki
-    pts1 = pts + g * 1.0
-
-    n_fb = levels if fb_levels is None else max(1, min(fb_levels, levels))
-    gb = -g / (2.0 ** (n_fb - 1)) if n_fb < levels \
-        else torch.zeros_like(pts)
-    for lvl in range(n_fb - 1, -1, -1):
-        s = 2.0 ** lvl
-        if lvl < n_fb - 1:
-            gb = gb * 2.0
-        gbi, okb = level_fn(pyr1[lvl], pyr0[lvl], pts1 / s, gb)
-        gb = torch.where(okb[:, None], gbi, gb)
-        ok = ok & okb
-    fb_err = torch.linalg.vector_norm(pts1 + gb - pts, dim=-1)
-    ok = ok & (fb_err < fb_thresh)
-
-    H, W = pyr0[0].shape
-    return pts1, ok & (pts1[:, 0] >= border) & (pts1[:, 0] < W - border) \
-        & (pts1[:, 1] >= border) & (pts1[:, 1] < H - border)
+    return K.pyramid_track(pyr0, pyr1, pts, valid, level_fn,
+                           fb_thresh=fb_thresh, border=border,
+                           fb_levels=fb_levels)
 
 
 def make_tracker(levels: int = 4, radius: int = 10, iters: int = 10,
@@ -87,31 +67,30 @@ def make_tracker(levels: int = 4, radius: int = 10, iters: int = 10,
                  device=None):
     """(img0, img1, pts, valid) -> (pts1, ok), pyramids built inside.
 
-    backend: "cuda" (the hand-written kernel), "plain" (its plain torch
-    version), "xla" (the Scharr/gather form), or "auto": "cuda" on a
-    CUDA device, "xla" elsewhere. fb_levels defaults to 1 on
-    "cuda"/"plain" (seeded level-0 back-check: 4 + 1 level launches per
-    track) and to all levels on "xla"."""
+    backend: "cuda" (the hand-written track kernel, one launch a
+    track), "plain" (its plain torch version), "xla" (the Scharr/gather
+    form), or "auto": "cuda" on a CUDA device, "xla" elsewhere.
+    fb_levels defaults to 1 on "cuda"/"plain" (level-0 back-check seeded
+    with the forward flow) and to all levels on "xla"."""
     if backend == "auto":
         backend = "cuda" if torch.device(device or "cpu").type == "cuda" \
             else "xla"
     if backend in ("cuda", "plain"):
-        from dynamic_vins_tpu_torch.ops import lk_level as k
-
-        fn = k.lk_level if backend == "cuda" else k.lk_level_plain
-        level_fn = lambda a, b, p, g: fn(a, b, p.contiguous(), g,
-                                         radius=radius, iters=iters)
+        fn = K.lk_track if backend == "cuda" else K.lk_track_plain
         fbl = 1 if fb_levels is None else fb_levels
+        tracker = lambda p0, p1, pts, valid: fn(
+            p0, p1, pts.contiguous(), valid.contiguous(), radius=radius,
+            iters=iters, fb_thresh=fb_thresh, border=border, fb_levels=fbl)
     elif backend == "xla":
-        level_fn, fbl = None, fb_levels
+        tracker = lambda p0, p1, pts, valid: track(
+            p0, p1, pts, valid, radius=radius, iters=iters,
+            fb_thresh=fb_thresh, border=border, fb_levels=fb_levels)
     else:
         raise ValueError(f"unknown LK backend {backend!r}")
 
     def run(img0, img1, pts, valid):
-        return track(pyr.build_pyramid(img0, levels),
-                     pyr.build_pyramid(img1, levels), pts, valid,
-                     radius=radius, iters=iters, fb_thresh=fb_thresh,
-                     border=border, level_fn=level_fn, fb_levels=fbl)
+        return tracker(pyr.build_pyramid(img0, levels),
+                       pyr.build_pyramid(img1, levels), pts, valid)
 
     run.backend = backend
     return run

@@ -78,7 +78,6 @@ class FeatureTracker:
         self._kill = np.zeros(N, bool)
         # kills not yet consumed by a dispatched step
         self._pending_kill = np.zeros(N, bool)
-        self._rng = np.random.default_rng(0)     # RANSAC-F samples
         self.timer = None
         self._tracker = lk.make_tracker(
             config.levels, config.radius, config.iters, config.fb_thresh,
@@ -184,10 +183,10 @@ class FeatureTracker:
 
         # epipolar outlier rejection; kills ride the NEXT step
         sel = np.flatnonzero(self.valid & (self.track_cnt > 1))
-        if cfg.use_ransac_f and sel.size >= 15:
-            inl = fundamental.ransac_fundamental(
-                self.prev_und[sel] * cfg.focal, und[sel] * cfg.focal,
-                self._rng, cfg.f_threshold_px, 0.99)
+        inl = fundamental.ransac_fundamental(
+            self.prev_und[sel] * cfg.focal, und[sel] * cfg.focal,
+            cfg.f_threshold_px, 0.99) if cfg.use_ransac_f else None
+        if inl is not None:
             bad = sel[~inl]
             self.valid[bad] = False
             self._kill[bad] = True

@@ -1,20 +1,28 @@
-"""One pyramid level of iterative LK: the hand-written Hopper kernel
-(csrc/lk_level.cu), its wrapper, and its plain torch version.
+"""Pyramidal LK: the hand-written Hopper kernels (csrc/lk_level.cu),
+their wrappers, and their plain torch versions.
 
 Semantics are those of the JAX package's Pallas kernel
-(`dynamic_vins_tpu/ops/lk_pallas.py`): each feature reads img0/img1 only
+(`dynamic_vins_tpu/ops/lk_pallas.py`) and of the JAX package's
+`frontend/lk.track` around it: each feature reads img0/img1 only
 through a WIN_H x WIN_W window whose origin is snapped to the (8, 128)
 tiling and clamped inside the edge-padded image; reads outside the
 window are zero; gradients are central differences of bilinear patches
 shifted by +-1 px; the img1 patch origin is clamped inside its window.
-Block sums accumulate in float64 and round once to float32, in the
-kernel and here alike (the Pallas kernel sums in float32).
-The padding, snapping and window origins (`prepare`) are shared by the
-kernel and the plain version.
+Patch sums accumulate in float64 and round once to float32, in the
+kernels and here alike (the Pallas kernel sums in float32).
 
-`lk_level` launches the kernel for CUDA tensors (raising if the build
-or the launch fails; it never falls back) and runs `lk_level_plain` for
-CPU tensors. `launches` counts kernel launches.
+Two kernels, one device function:
+  * `lk_track`: a whole track (forward levels, seeded backward check,
+    forward-backward and border tests) in one launch; `track_launches`
+    counts its launches. CPU tensors run `lk_track_plain`, which is
+    the track glue `pyramid_track` with `lk_level_plain` as its level
+    (`frontend.lk.track` runs the same glue around the Scharr level).
+  * `lk_level`: one level; `launches` counts its launches. CPU tensors
+    run `lk_level_plain`.
+The kernels pad and snap the windows themselves; `prepare` (padded
+copies and window origins) serves the plain version only. A wrapper
+given CUDA tensors launches its kernel or raises: it never falls back.
+The CUDA path takes radius RADIUS only.
 """
 
 from __future__ import annotations
@@ -25,15 +33,19 @@ import torch
 
 WIN_H = 48
 WIN_W = 256
+RADIUS = 10           # the kernels' compiled patch radius
+MAX_LEVELS = 8
 
-launches = 0          # kernel launches since import (reset by callers)
+launches = 0          # lk_level kernel launches (reset by callers)
+track_launches = 0    # lk_track kernel launches (reset by callers)
 
-_fn = None
+_lib = None
 
 
 def prepare(img0, img1, pts, guess):
     """Edge-pad both images to the window tiling and compute the window
-    origins -> (img0p, img1p, meta [N,4] int32 = oy0, ox0, oy1, ox1)."""
+    origins -> (img0p, img1p, meta [N,4] int32 = oy0, ox0, oy1, ox1).
+    The plain version's; the kernels do the same in place."""
     H0, W0 = img0.shape
     H = max((H0 + 7) // 8 * 8, WIN_H)
     W = max((W0 + 127) // 128 * 128, WIN_W)
@@ -112,37 +124,119 @@ def lk_level_plain(img0, img1, pts, guess, radius: int = 10,
     return torch.stack([gu, gv], dim=1), good
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def pyramid_track(pyr0, pyr1, pts, valid, level_fn,
+                  fb_thresh: float = 0.5, border: int = 3,
+                  fb_levels: int | None = None):
+    """Track pts from pyramid0 to pyramid1 with a forward-backward check,
+    one pyramid level at a time through level_fn(img0, img1, pts, guess)
+    -> (flow, ok).
+
+    pts [N,2] full-resolution pixels; valid [N] bool. fb_levels: levels
+    of the backward pass (None: all); fewer than all seeds the backward
+    track with the forward flow. Returns (pts1, ok)."""
+    levels = len(pyr0)
+    g = torch.zeros_like(pts)
+    ok = valid
+    for lvl in range(levels - 1, -1, -1):
+        s = 2.0 ** lvl
+        if lvl < levels - 1:
+            g = g * 2.0
+        gi, oki = level_fn(pyr0[lvl], pyr1[lvl], pts / s, g)
+        g = torch.where(oki[:, None], gi, g)
+        ok = ok & oki
+    pts1 = pts + g * 1.0
+
+    n_fb = levels if fb_levels is None else max(1, min(fb_levels, levels))
+    gb = -g / (2.0 ** (n_fb - 1)) if n_fb < levels \
+        else torch.zeros_like(pts)
+    for lvl in range(n_fb - 1, -1, -1):
+        s = 2.0 ** lvl
+        if lvl < n_fb - 1:
+            gb = gb * 2.0
+        gbi, okb = level_fn(pyr1[lvl], pyr0[lvl], pts1 / s, gb)
+        gb = torch.where(okb[:, None], gbi, gb)
+        ok = ok & okb
+    fb_err = torch.linalg.vector_norm(pts1 + gb - pts, dim=-1)
+    ok = ok & (fb_err < fb_thresh)
+
+    H, W = pyr0[0].shape
+    return pts1, ok & (pts1[:, 0] >= border) & (pts1[:, 0] < W - border) \
+        & (pts1[:, 1] >= border) & (pts1[:, 1] < H - border)
+
+
+def lk_track_plain(pyr0, pyr1, pts, valid, radius: int = 10,
+                   iters: int = 10, fb_thresh: float = 0.5,
+                   border: int = 3, fb_levels: int = 1):
+    """The track kernel's function in plain torch -> (pts1, ok)."""
+    return pyramid_track(pyr0, pyr1, pts, valid,
+                         lambda a, b, p, g: lk_level_plain(
+                             a, b, p.contiguous(), g, radius, iters),
+                         fb_thresh=fb_thresh, border=border,
+                         fb_levels=fb_levels)
+
+
+class _Pyramids(ctypes.Structure):
+    """`LkPyramids` of csrc/lk_level.cu."""
+
+    _fields_ = [("img0", ctypes.c_void_p * MAX_LEVELS),
+                ("img1", ctypes.c_void_p * MAX_LEVELS),
+                ("H", ctypes.c_int * MAX_LEVELS),
+                ("W", ctypes.c_int * MAX_LEVELS),
+                ("levels", ctypes.c_int)]
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
         from dynamic_vins_tpu_torch.ops import build
 
-        fn = build.load("lk_level").lk_level_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp]
-        fn.restype = ci
-        _fn = fn
-    return _fn
+        lib = build.load("lk_level")
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.lk_level_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp,
+                                        vp, vp]
+        lib.lk_level_launch.restype = ci
+        lib.lk_track_launch.argtypes = [ctypes.POINTER(_Pyramids), vp, vp,
+                                        ci, ci, cf, ci, ci, vp, vp, vp]
+        lib.lk_track_launch.restype = ci
+        _lib = lib
+    return _lib
 
 
-def _check(img0, img1, pts, guess, radius):
-    if img0.dim() != 2 or img0.shape != img1.shape:
-        raise ValueError(f"img0/img1 must be [H,W] of one shape, got "
-                         f"{tuple(img0.shape)} and {tuple(img1.shape)}")
-    n = pts.shape[0]
-    if pts.shape != (n, 2) or guess.shape != (n, 2):
-        raise ValueError("pts and guess must both be [N,2]")
-    for name, t in (("img0", img0), ("img1", img1), ("pts", pts),
-                    ("guess", guess)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != img0.device:
-            raise ValueError(f"{name} is on {t.device}, img0 on "
-                             f"{img0.device}")
+def _check_image(name, t, device):
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be [H,W], got {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, pts on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_points(pts, *others):
+    n = pts.shape[0] if pts.dim() == 2 else -1
+    if pts.shape != (n, 2):
+        raise ValueError(f"pts must be [N,2], got {tuple(pts.shape)}")
+    for name, t, shape, dtype in (("pts", pts, (n, 2), torch.float32),
+                                  *others):
+        if t.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != pts.device:
+            raise ValueError(f"{name} is on {t.device}, pts on "
+                             f"{pts.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if (2 * radius + 1) ** 2 > 1024:
-        raise ValueError(f"radius {radius} too large for one block")
+
+
+def _check_cuda(radius, iters):
+    if radius != RADIUS:
+        raise ValueError(f"the CUDA LK kernels are built for radius "
+                         f"{RADIUS}, got {radius}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
 
 
 def lk_level(img0, img1, pts, guess, radius: int = 10, iters: int = 10):
@@ -151,27 +245,86 @@ def lk_level(img0, img1, pts, guess, radius: int = 10, iters: int = 10):
     img0/img1 [H,W] float32; pts [N,2] (x, y) in img0; guess [N,2]
     current flow. CUDA tensors launch the kernel; CPU tensors run the
     plain version."""
-    _check(img0, img1, pts, guess, radius)
-    if img0.device.type != "cuda":
+    _check_points(pts, ("guess", guess, pts.shape, torch.float32))
+    _check_image("img0", img0, pts.device)
+    _check_image("img1", img1, pts.device)
+    if img0.shape != img1.shape:
+        raise ValueError(f"img0/img1 shapes differ: {tuple(img0.shape)} "
+                         f"and {tuple(img1.shape)}")
+    if pts.device.type != "cuda":
         return lk_level_plain(img0, img1, pts, guess, radius, iters)
-    img0p, img1p, meta = prepare(img0, img1, pts, guess)
-    return launch(img0p, img1p, meta, pts, guess, radius, iters)
-
-
-def launch(img0p, img1p, meta, pts, guess, radius: int = 10,
-           iters: int = 10):
-    """Launch the kernel on `prepare`d CUDA inputs (counts one launch)."""
-    global launches
+    _check_cuda(radius, iters)
     n = pts.shape[0]
     flow = torch.empty((n, 2), dtype=torch.float32, device=pts.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pts.device)
+    launch_level(img0, img1, pts, guess, iters, flow, ok)
+    return flow, ok
+
+
+def launch_level(img0, img1, pts, guess, iters, flow, ok):
+    """Launch the level kernel on checked CUDA inputs into flow / ok
+    (counts one launch)."""
+    global launches
     with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(img0p.data_ptr(), img1p.data_ptr(),
-                       img0p.shape[1], pts.data_ptr(), guess.data_ptr(),
-                       meta.data_ptr(), n, radius, iters, flow.data_ptr(),
-                       ok.data_ptr(), stream)
+        rc = _kernels().lk_level_launch(
+            img0.data_ptr(), img1.data_ptr(), img0.shape[0],
+            img0.shape[1], pts.data_ptr(), guess.data_ptr(), pts.shape[0],
+            iters, flow.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lk_level kernel launch failed: CUDA error {rc}")
     launches += 1
-    return flow, ok
+
+
+def lk_track(pyr0, pyr1, pts, valid, radius: int = 10, iters: int = 10,
+             fb_thresh: float = 0.5, border: int = 3, fb_levels: int = 1):
+    """Track pts [N,2] (level-0 pixels) from pyramid 0 to pyramid 1 with
+    the forward-backward check over `fb_levels` levels (seeded with the
+    forward flow) and the border test -> (pts1 [N,2], ok [N] bool).
+
+    pyr0/pyr1: equal-length lists of [H,W] float32 levels, level l of
+    both of one shape; valid [N] bool. CUDA tensors launch the track
+    kernel once; CPU tensors run the plain version."""
+    _check_points(pts, ("valid", valid, (pts.shape[0],), torch.bool))
+    if not 1 <= len(pyr0) <= MAX_LEVELS or len(pyr1) != len(pyr0):
+        raise ValueError(f"pyramids must have 1..{MAX_LEVELS} levels "
+                         f"each, got {len(pyr0)} and {len(pyr1)}")
+    for lvl, (a, b) in enumerate(zip(pyr0, pyr1)):
+        _check_image(f"pyr0[{lvl}]", a, pts.device)
+        _check_image(f"pyr1[{lvl}]", b, pts.device)
+        if a.shape != b.shape:
+            raise ValueError(f"level {lvl} shapes differ: "
+                             f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if pts.device.type != "cuda":
+        return lk_track_plain(pyr0, pyr1, pts, valid, radius, iters,
+                              fb_thresh, border, fb_levels)
+    _check_cuda(radius, iters)
+    n = pts.shape[0]
+    pts1 = torch.empty((n, 2), dtype=torch.float32, device=pts.device)
+    ok = torch.empty((n,), dtype=torch.bool, device=pts.device)
+    launch_track(pyr0, pyr1, pts, valid, iters, fb_thresh, border,
+                 fb_levels, pts1, ok)
+    return pts1, ok
+
+
+def launch_track(pyr0, pyr1, pts, valid, iters, fb_thresh, border,
+                 fb_levels, pts1, ok):
+    """Launch the track kernel on checked CUDA inputs into pts1 / ok
+    (counts one launch)."""
+    global track_launches
+    L = len(pyr0)
+    arg = _Pyramids()
+    arg.levels = L
+    for lvl in range(L):
+        arg.img0[lvl] = pyr0[lvl].data_ptr()
+        arg.img1[lvl] = pyr1[lvl].data_ptr()
+        arg.H[lvl], arg.W[lvl] = pyr0[lvl].shape
+    with torch.cuda.device(pts.device):
+        rc = _kernels().lk_track_launch(
+            ctypes.byref(arg), pts.data_ptr(), valid.data_ptr(),
+            pts.shape[0], iters, fb_thresh, border, fb_levels,
+            pts1.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lk_track kernel launch failed: CUDA error {rc}")
+    track_launches += 1

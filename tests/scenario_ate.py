@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Unaligned ATE of the chip_smoke.py slice scenario (752x480 rendered
-stereo + IMU, seed 0, 300 landmarks, RAW System with VioConfig defaults)
-through the port or through the JAX package, for any blob size.
+stereo + IMU, seed 0, RAW System with VioConfig defaults) through the
+port or through the JAX package, for any blob size, landmark count and
+camera rate (defaults: chip_smoke's).
 
     python tests/scenario_ate.py --impl torch --sigma 3.2 --dtype f32 --lk plain
     python tests/scenario_ate.py --impl torch --device cuda --sigma 1.6
     python tests/scenario_ate.py --impl jax --sigma 1.6
     python tests/scenario_ate.py --impl both --sigma 1.6 --no-ransac-f
+    python tests/scenario_ate.py --impl both --lk plain
+    python tests/scenario_ate.py --lk-vs-truth --frame-hz 10
 
 Prints one line per frame (features, position error) and, last, the
 ATE. The port runs on --device (default cpu) with its estimator in
 --dtype and its LK in --lk; the JAX System runs on the CPU in float64
-with its multi-dispatch estimator path (`use_megastep = False`).
+with its multi-dispatch estimator path (`use_megastep = False`) and its
+CPU LK (the Scharr/gather form), or, with --lk plain or cuda, the
+kernel's semantics: the Pallas level in interpret mode with the seeded
+level-0 back-check.
 RANSAC-F is each side's own (OpenCV on the JAX side, where installed),
 or off on both with --no-ransac-f. `--impl both` runs the two on the
 same frames and prints, per frame, where they part: the tracked slot
 sets, the largest point difference over slots valid on both sides, and
 the distance between the two position estimates.
+`--lk-vs-truth` instead tracks the corners of frame 0 into frame 1
+(temporal) and into the right image (stereo) with the port's two LK
+forms, the kernel's semantics ("plain") and the Scharr/gather form
+("xla"), and prints how far the tracks it accepts land from the
+ground-truth projection of the landmark each corner sits on.
 The torch path imports nothing of JAX.
 """
 
@@ -73,7 +84,9 @@ def run_torch(args):
     from dynamic_vins_tpu_torch.utils.config import VioConfig
 
     dev = torch.device(args.device)
-    seq, imgs, imus = chip_smoke.make_scene(torch, dev, sigma=args.sigma)
+    seq, imgs, imus = chip_smoke.make_scene(torch, dev, sigma=args.sigma,
+                                            landmarks=args.landmarks,
+                                            frame_hz=args.frame_hz)
     dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
     system = System(chip_smoke.slice_config(seq.rig, VioConfig()),
                     output_prefix=args.out + "_torch", device=dev,
@@ -95,6 +108,27 @@ def run_torch(args):
     return seq.gt_p.numpy(), out, system.estimator.failed
 
 
+def _use_pallas_interpret_lk():
+    """Make the JAX tracker track with the Pallas LK level in interpret
+    mode and the seeded level-0 back-check (the port's kernel
+    semantics) instead of its CPU Scharr/gather form."""
+    import jax
+
+    from dynamic_vins_tpu.frontend import lk, pyramid
+    from dynamic_vins_tpu.ops import lk_pallas
+
+    def make_tracker(levels, radius, iters, fb_thresh, border, **_):
+        level = lambda a, b, p, g: lk_pallas.lk_level(
+            a, b, p, g, radius=radius, iters=iters, interpret=True)
+        return jax.jit(lambda img0, img1, pts, valid: lk.track(
+            pyramid.build_pyramid(img0, levels),
+            pyramid.build_pyramid(img1, levels), pts, valid, radius=radius,
+            iters=iters, fb_thresh=fb_thresh, border=border,
+            level_fn=level, fb_levels=1))
+
+    lk.make_tracker = make_tracker
+
+
 def run_jax(args):
     import jax
 
@@ -108,10 +142,12 @@ def run_jax(args):
     from dynamic_vins_tpu.utils.config import VioConfig
 
     n = chip_smoke.FRAMES
-    seq = sim.generate_sequence(num_frames=n, imu_hz=200.0, acc_noise=0.05,
-                                gyr_noise=0.005, num_landmarks=300,
+    seq = sim.generate_sequence(num_frames=n, frame_hz=args.frame_hz,
+                                imu_hz=200.0, acc_noise=0.05,
+                                gyr_noise=0.005,
+                                num_landmarks=args.landmarks,
                                 seed=chip_smoke.SEED)
-    inten = render.make_intensities(300, seed=chip_smoke.SEED)
+    inten = render.make_intensities(args.landmarks, seed=chip_smoke.SEED)
     rig = seq.rig
     cfg = VioConfig()
     cfg.image_width, cfg.image_height = rig.width, rig.height
@@ -125,6 +161,8 @@ def run_jax(args):
     T1[:3, 3] = np.asarray(pr)
     cfg.body_T_cam0 = T0.reshape(-1).tolist()
     cfg.body_T_cam1 = T1.reshape(-1).tolist()
+    if args.lk in ("plain", "cuda"):
+        _use_pallas_interpret_lk()
     system = System(cfg, output_prefix=args.out + "_jax")
     system.estimator.cfg.use_megastep = False
     system.tracker.cfg.use_ransac_f = not args.no_ransac_f
@@ -146,11 +184,56 @@ def run_jax(args):
     return np.asarray(seq.gt_p), out, system.estimator.failed
 
 
+def lk_vs_truth(args):
+    import torch
+
+    from dynamic_vins_tpu_torch.frontend import corners, lk
+    from dynamic_vins_tpu_torch.frontend.tracker import TrackerConfig
+    from dynamic_vins_tpu_torch.sim import render
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+
+    seq = sim.generate_sequence(num_frames=2, frame_hz=args.frame_hz,
+                                imu_hz=200.0, acc_noise=0.05,
+                                gyr_noise=0.005,
+                                num_landmarks=args.landmarks,
+                                seed=chip_smoke.SEED)
+    inten = render.make_intensities(args.landmarks, seed=chip_smoke.SEED)
+    view = lambda k, c: (
+        render.render_frame(seq.rig, seq.gt_p[k], seq.gt_q[k],
+                            seq.landmarks, inten, cam=c,
+                            sigma=args.sigma).float(),
+        sim.observe(seq.rig, seq.gt_p[k], seq.gt_q[k], seq.landmarks,
+                    cam=c))
+    img0, (uv0, vis0, _) = view(0, 0)
+    tc = TrackerConfig()
+    pts, _, found = corners.detect(img0, max_corners=tc.max_cnt,
+                                   min_dist=tc.min_dist, border=tc.border)
+    for name, (img1, (uv1, vis1, _)) in (("temporal", view(1, 0)),
+                                         ("stereo", view(0, 1))):
+        # the landmark under each corner: the nearest projection seen in
+        # both images, within 1.5 px
+        d = torch.cdist(pts.double(), uv0) + 1e9 * (~(vis0 & vis1))[None]
+        near = found & (d.min(dim=1).values < 1.5)
+        truth = uv1[d.argmin(dim=1)].float()
+        for backend in ("plain", "xla"):
+            run = lk.make_tracker(tc.levels, tc.radius, tc.iters,
+                                  tc.fb_thresh, tc.border, backend=backend)
+            p1, ok = run(img0, img1, pts, found)
+            err = (p1 - truth).norm(dim=1)[ok & near]
+            print(f"{args.frame_hz} Hz {args.landmarks} landmarks {name} "
+                  f"lk {backend}: {int(ok.sum())} tracks accepted, "
+                  f"{err.numel()} on a landmark: error median "
+                  f"{float(err.median()):.3f} px, {int((err > 3).sum())} "
+                  f"above 3 px, max {float(err.max()):.1f} px", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--impl", choices=("torch", "jax", "both"),
                     default="torch")
     ap.add_argument("--sigma", type=float, default=chip_smoke.BLOB_SIGMA_PX)
+    ap.add_argument("--landmarks", type=int, default=chip_smoke.N_LANDMARKS)
+    ap.add_argument("--frame-hz", type=float, default=chip_smoke.FRAME_HZ)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f64")
     ap.add_argument("--lk", choices=("auto", "xla", "plain", "cuda"),
@@ -158,8 +241,14 @@ def main():
     ap.add_argument("--no-ransac-f", action="store_true",
                     help="turn RANSAC-F off on both sides")
     ap.add_argument("--out", default="output/scenario_ate")
+    ap.add_argument("--lk-vs-truth", action="store_true",
+                    help="only compare the two LK forms with the ground "
+                         "truth on frame 0")
     args = ap.parse_args()
-    tag = f"sigma {args.sigma} ransac-f {not args.no_ransac_f}"
+    if args.lk_vs_truth:
+        return lk_vs_truth(args)
+    tag = (f"sigma {args.sigma} landmarks {args.landmarks} "
+           f"{args.frame_hz} Hz ransac-f {not args.no_ransac_f}")
     runs = {}
     if args.impl in ("torch", "both"):
         runs["torch"] = run_torch(args)

@@ -5,6 +5,11 @@ This file imports no JAX, so the card's machine (which has none) runs it
 with the repository's conftest left out:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
+
+The track kernel's `ok` may differ from the plain version's only on
+features whose fb_err lies within 1e-5 px of fb_thresh or whose pts1
+lies within 1e-5 px of the border (a float32 rounding decides them);
+such features are counted and printed, and expected to be none.
 """
 
 import numpy as np
@@ -12,11 +17,12 @@ import pytest
 import torch
 
 from dynamic_vins_tpu_torch.frontend import pyramid as tpyr
+from dynamic_vins_tpu_torch.ops import lk_check
 from dynamic_vins_tpu_torch.ops import lk_level as tk
 
 torch.set_num_threads(1)   # the xdist workers share the cores
 
-FLOW_ATOL = 1e-3      # px; float32 sums in another order than torch's
+FLOW_ATOL = 1e-3      # px; float64 sums in another order than torch's
 
 
 def _pair(shift, seed, H, W):
@@ -66,3 +72,48 @@ def test_lk_kernel_matches_plain(cuda_device, kind):
     ok = okp.cpu().numpy()
     np.testing.assert_allclose(fk.cpu().numpy()[ok], fp.cpu().numpy()[ok],
                                rtol=0, atol=FLOW_ATOL)
+
+
+def _track_case(kind, device):
+    """(pyr0, pyr1, pts, valid): a 4-level 752x480 pyramid pair with 150
+    features, 40 of them within 12 px of the borders (kind 0), or a
+    3-level 376x240 pair (94x60 coarse level) with a large shift, so that
+    coarse guesses hit the img1 window clamp (kind 1); every seventh
+    slot invalid."""
+    H, W, levels, shift = ((480, 752, 4, (3.2, -2.4)) if kind == 0
+                           else (240, 376, 3, (14.0, 6.0)))
+    img0, img1 = _pair(shift, 30 + kind, H, W)
+    rng = np.random.default_rng(40 + kind)
+    pts = rng.uniform([20, 20], [W - 20, H - 20], size=(150, 2))
+    pts = lk_check.with_border_tail(pts, 110, H, W, rng)
+    valid = np.ones(150, bool)
+    valid[::7] = False
+    f = lambda a: a.to(device).contiguous()
+    return ([f(a) for a in tpyr.build_pyramid(img0, levels)],
+            [f(a) for a in tpyr.build_pyramid(img1, levels)],
+            torch.tensor(pts, dtype=torch.float32, device=device),
+            torch.tensor(valid, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,fb_levels", [(0, 1), (0, 4), (1, 1),
+                                            (1, 3)])
+def test_lk_track_kernel_matches_plain(cuda_device, kind, fb_levels):
+    pyr0, pyr1, pts, valid = _track_case(kind, cuda_device)
+    kw = dict(radius=10, iters=10, fb_thresh=0.5, border=8,
+              fb_levels=fb_levels)
+    before = (tk.launches, tk.track_launches)
+    kern = tk.lk_track(pyr0, pyr1, pts, valid, **kw)
+    torch.cuda.synchronize()
+    assert (tk.launches, tk.track_launches) == (before[0], before[1] + 1)
+    plain = tk.lk_track_plain(pyr0, pyr1, pts, valid, **kw)
+    near = lk_check.near_threshold(pyr0, pyr1, pts, valid, plain[0], 0.5,
+                                   8, fb_levels)
+    err, bad, exempt = lk_check.compare_track(kern, plain, near)
+    print(f"kind {kind} fb_levels {fb_levels}: max |pts1 err| {err:.2e} px,"
+          f" ok differs on {bad} features and on {exempt} within 1e-5 px "
+          f"of a threshold; ok {int(plain[1].sum())}/150")
+    assert bad == 0
+    assert err <= FLOW_ATOL
+    assert not (kern[1] & ~valid).any()
+    assert 0 < int(plain[1].sum()) < int(valid.sum())

@@ -1,11 +1,12 @@
-"""Port parity: the LK level (kernel's plain version against the Pallas
-kernel in interpret mode), the Scharr LK level, pyramid and corners.
+"""Port parity: the LK level and the whole track (the kernels' plain
+versions against the Pallas kernel in interpret mode, under the JAX
+package's track glue), the Scharr LK level, pyramid and corners.
 
-The plain version follows the Pallas formulation (central-difference
+The plain versions follow the Pallas formulation (central-difference
 gradients of bilinear window patches, zero outside the window, clamped
 img1 patch origin), not the Scharr form; the Scharr `_lk_level` is held
-against the JAX XLA path separately. Flows agree within 1e-3 px (both
-float32, sums in other orders), `ok` exactly.
+against the JAX XLA path separately. Flows and tracked points agree
+within 1e-3 px (both float32, sums in other orders), `ok` exactly.
 """
 
 import jax.numpy as jnp
@@ -100,6 +101,60 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
     np.testing.assert_array_equal(ok1.numpy(), ok2.numpy())
     with pytest.raises(TypeError):
         tk.lk_level(T(img0).double(), T(img1), T(pts), T(guess))
+
+
+def test_plain_track_matches_pallas_track():
+    """`lk_track_plain` against the JAX package's `track` with the Pallas
+    level in interpret mode and the seeded level-0 back-check, on one
+    3-level pyramid (376x240 down to 94x60): 24 features, 8 of them
+    within 12 px of the borders, every fifth slot invalid."""
+    img0, img1 = _pair(shift=(4.0, -2.5), seed=21, H=240, W=376)
+    rng = np.random.default_rng(22)
+    pts = np.concatenate([
+        _pts(rng, 16, (20, 20), (356, 220)), _pts(rng, 2, (1, 1), (12, 239)),
+        _pts(rng, 2, (364, 1), (375, 239)), _pts(rng, 2, (1, 1), (375, 12)),
+        _pts(rng, 2, (1, 228), (375, 239))])
+    valid = np.ones(24, bool)
+    valid[::5] = False
+    T = torch.tensor
+    p0 = tpyr.build_pyramid(T(img0), 3)
+    p1 = tpyr.build_pyramid(T(img1), 3)
+    assert tuple(p0[2].shape) == (60, 94)
+    J = lambda pyr: [jnp.asarray(a.numpy()) for a in pyr]
+    level = lambda a, b, p, g: lk_pallas.lk_level(a, b, p, g, radius=10,
+                                                  iters=10, interpret=True)
+    pj, okj = jlk.track(J(p0), J(p1), jnp.asarray(pts), jnp.asarray(valid),
+                        radius=10, iters=10, fb_thresh=0.5, border=8,
+                        level_fn=level, fb_levels=1)
+    pt, okt = tk.lk_track_plain(p0, p1, T(pts), T(valid), radius=10,
+                                iters=10, fb_thresh=0.5, border=8,
+                                fb_levels=1)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert 0 < okt.sum() < valid.sum()
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0,
+                               atol=FLOW_ATOL)
+
+
+def test_track_wrapper_runs_plain_on_cpu_without_launching():
+    img0, img1 = _pair(shift=(2.0, 1.0), seed=23, H=120, W=160)
+    T = torch.tensor
+    p0, p1 = tpyr.build_pyramid(T(img0), 2), tpyr.build_pyramid(T(img1), 2)
+    pts = T(_pts(np.random.default_rng(24), 12, (5, 5), (155, 115)))
+    valid = torch.ones(12, dtype=torch.bool)
+    before = (tk.launches, tk.track_launches)
+    q1, ok1 = tk.lk_track(p0, p1, pts, valid, fb_levels=2)
+    q2, ok2 = tk.lk_track_plain(p0, p1, pts, valid, fb_levels=2)
+    run = tlk.make_tracker(levels=2, border=3, backend="plain",
+                           fb_levels=2)
+    q3, ok3 = run(T(img0), T(img1), pts, valid)
+    assert (tk.launches, tk.track_launches) == before
+    for q, ok in ((q2, ok2), (q3, ok3)):
+        np.testing.assert_array_equal(q1.numpy(), q.numpy())
+        np.testing.assert_array_equal(ok1.numpy(), ok.numpy())
+    with pytest.raises(TypeError):
+        tk.lk_track(p0, p1, pts, valid.to(torch.uint8))
+    with pytest.raises(ValueError):
+        tk.lk_track(p0, p1[:1], pts, valid)
 
 
 def test_scharr_level_matches_xla():

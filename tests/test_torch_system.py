@@ -3,15 +3,18 @@ rendered scenario of tests/test_system.py (376x240, window of 4, 8
 frames), images -> fused tracker -> estimator -> TUM file, against the
 JAX System on the same frames.
 
-Both sides run with RANSAC-F off (the port's sampler is its own) and the
-JAX side on its multi-dispatch path (`use_megastep = False`). Per-frame
-positions agree within 1e-3 m: the trackers' float32 LK sums in other
-orders move points by ~1e-4 px, which the solves carry into the poses.
+Cameras at 10 Hz. Both sides run with RANSAC-F off and with it on (the
+port's sampler reproduces OpenCV's FM_RANSAC, which the JAX side calls;
+that case skips without `cv2`), the JAX side on its multi-dispatch path
+(`use_megastep = False`). Per-frame positions agree within 1e-3 m: the
+trackers' float32 LK sums in other orders move points by ~1e-4 px,
+which the solves carry into the poses.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dynamic_vins_tpu.geometry import lie as jlie
@@ -52,7 +55,10 @@ def _configs(rig):
     return out
 
 
-def test_raw_system_matches_jax_on_rendered_frames(tmp_path):
+@pytest.mark.parametrize("ransac_f", [False, True])
+def test_raw_system_matches_jax_on_rendered_frames(tmp_path, ransac_f):
+    if ransac_f:
+        pytest.importorskip("cv2")
     rig = render.small_rig(0.5, jnp.float64)
     seq = sim.generate_sequence(num_frames=FRAMES, imu_hz=200.0,
                                 num_landmarks=200, seed=4)._replace(rig=rig)
@@ -62,8 +68,8 @@ def test_raw_system_matches_jax_on_rendered_frames(tmp_path):
     js = JSystem(jcfg, output_prefix=str(tmp_path / "jax"))
     ts = TSystem(tcfg, output_prefix=str(tmp_path / "torch"), device="cpu")
     js.estimator.cfg.use_megastep = False
-    js.tracker.cfg.use_ransac_f = False
-    ts.tracker.cfg.use_ransac_f = False
+    js.tracker.cfg.use_ransac_f = ransac_f
+    ts.tracker.cfg.use_ransac_f = ransac_f
     v0 = np.asarray(sim.state_at(seq.frame_times[0])[2])
     for s in (js, ts):
         s.estimator.set_initial_pose(np.asarray(seq.gt_p[0]),
