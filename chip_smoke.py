@@ -15,21 +15,41 @@ Phases (any failure exits non-zero before the result lines):
      plain version, and each kernel's bound.
   4. slice: the RAW stereo+IMU System on 30 rendered 752x480 frames
      (seed 0, 20 Hz camera, 200 Hz IMU with noise, 300 landmarks,
-     VioConfig defaults,
-     estimator in float32; landmark blobs of sigma 3.2 px, the 1.6 px of
-     the 376x240 tests scaled to this resolution, see PERF.md): counts
-     kernel launches on the main path (one track launch per track, two a
-     frame, and no per-level launch),
-     checks features, finiteness and the unaligned ATE gate, and prints
-     steady-state ms/frame, stage means and peak device memory.
-Prints one JSON line describing the kernels, then, last, the result line
-{"ok": true, "device": {...}}.
+     VioConfig defaults, estimator in float32; landmark blobs of sigma
+     3.2 px, the 1.6 px of the 376x240 tests scaled to this resolution,
+     see PERF.md) on its default path: once the window is full, each
+     frame's backend is one replay of the megastep's CUDA graph chain.
+     Counts kernel launches (one track launch per track, two a frame, and
+     no per-level launch) and step replays (one a steady frame), checks
+     features, finiteness and the unaligned ATE gate, and prints
+     steady-state ms/frame, stage means and peak device memory; then
+     times the megastep eager against its replay, per branch.
+  5. graph check: in float64 at the slice's widths (window 11, 512
+     landmark slots, 4096 obs rows) on the scene's 30 feature-domain
+     frames, the estimator alone as tests/test_pipelined.py runs it: the
+     pipelined outputs within 2e-2 m of the sequential ones
+     (test_pipelined.py's bound), and a replay of each branch's chain
+     (keyframe, non-keyframe) equal to the eager step on the same
+     inputs, for both steps: masks identical, positions within 1e-6 m.
+  6. pipelined: the slice with `VioConfig.pipelined` (frontend two
+     frames ahead, device-resident steady state): the same counts and
+     gate; its distance to the sequential phase is printed, not gated:
+     in float32 two runs of this scene part by centimetres (the card's
+     atomic sums differ from run to run, and the scene amplifies
+     rounding, see PERF.md), so phase 5 holds the bound in float64.
+  7. multi-dispatch: the slice's first 15 frames on the multi-dispatch
+     estimator path (`use_megastep = False`): the same launch count and
+     gate, and no replay.
+A capture or replay that fails raises and ends the run (nothing falls
+back to eager execution). Prints one JSON line describing the kernels,
+then, last, the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX nor of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +59,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 0
 FRAMES = 30
+MULTI_FRAMES = 15          # the multi-dispatch phase's depth
 STEADY_FROM = 15
 N_FEAT = 150
 N_LANDMARKS = 300
@@ -50,6 +71,9 @@ ATE_GATE_M = 0.20
 # 376x240 rig of the tests; at 752x480 the same scene has 3.2 px blobs
 BLOB_SIGMA_PX = 3.2
 FLOW_ATOL_PX = 1e-3
+REPLAY_POS_ATOL_M = 1e-6   # float64 replay against the eager step
+PIPE_POS_ATOL_M = 2e-2     # pipelined against sequential
+                           # (tests/test_pipelined.py:48)
 # H100 SXM published peaks (700 W): HBM bytes/s, float32 non-tensor flop/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -358,7 +382,13 @@ def slice_config(rig, cfg):
     return cfg
 
 
-def slice_phase(torch, dev, seq, imgs, imus):
+def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
+              use_megastep=True, pipelined=False):
+    """Drive the System over the slice's first `frames` (all) frames on one
+    path. Counts (kernel launches, step replays) are set to 0 just before
+    the frames and read just after. Fails on a count, a feature drought,
+    a non-finite output or the ATE gate; returns the launch counts, the
+    positions and the step graph."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.ops import lk_level as K
@@ -367,64 +397,230 @@ def slice_phase(torch, dev, seq, imgs, imus):
     from dynamic_vins_tpu_torch.system import FrameInput, System
     from dynamic_vins_tpu_torch.utils.config import VioConfig
 
+    frames = frames or FRAMES
     rig = seq.rig
     cfg = slice_config(rig, VioConfig())
-    out_dir = REPO / "output"
-    system = System(cfg, output_prefix=str(out_dir / "chip_smoke"),
+    cfg.pipelined = pipelined
+    system = System(cfg, output_prefix=str(REPO / "output" /
+                                           f"chip_smoke_{name}"),
                     device=dev, dtype=torch.float32)
-    print(f"slice: {rig.width}x{rig.height} stereo+IMU RAW, blob sigma "
-          f"{BLOB_SIGMA_PX} px, window "
-          f"{cfg.window_size}, max_cnt {cfg.max_cnt}, estimator dtype "
-          f"{system.estimator.dtype}, LK backend "
-          f"{system.tracker._tracker.backend}", flush=True)
-    system.estimator.set_initial_pose(
-        seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
-        sim.state_at(seq.frame_times[0])[2].numpy())
+    est = system.estimator
+    est.cfg.use_megastep = use_megastep
+    print(f"{name}: {rig.width}x{rig.height} stereo+IMU RAW, blob sigma "
+          f"{BLOB_SIGMA_PX} px, window {cfg.window_size}, max_cnt "
+          f"{cfg.max_cnt}, estimator dtype {est.dtype}, lm_capacity "
+          f"{est.cfg.lm_capacity}, obs_capacity {est.cfg.obs_capacity}, "
+          f"megastep {use_megastep}, pipelined {pipelined}, LK backend "
+          f"{system.tracker._tracker.backend}, {frames} frames", flush=True)
+    est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                         sim.state_at(seq.frame_times[0])[2].numpy())
+    graph = est._pipe if pipelined else est._mega
+    # the estimator's steady frames (window full and initialized), which
+    # a pipelined System reaches two calls late
+    steady_calls = []
+    process_frame = est.process_frame
 
+    def counted(frame, imu=None):
+        steady_calls.append(est.initialized
+                            and est.frame_count == est.cfg.num_frames - 1)
+        return process_frame(frame, imu)
+
+    est.process_frame = counted
+    steady_from = min(STEADY_FROM, frames - 4)
+
+    gc.collect()                   # the peak is this phase's alone
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.launches = 0
     K.track_launches = 0
+    graph.replays.clear()
     outs, frame_ms = [], []
-    for k in range(FRAMES):
-        if k == STEADY_FROM:
+    for k in range(frames):
+        if k == steady_from:
+            torch.cuda.synchronize()
             system.reset_timers()
+            t_steady = time.perf_counter()
         t0 = time.perf_counter()
         out = system.process(FrameInput(float(seq.frame_times[k]),
                                         imgs[k][0], imgs[k][1],
                                         imu=imus[k]))
-        torch.cuda.synchronize()
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         nfeat = int(system.tracker.valid.sum())
-        if k > 0 and nfeat < 30:
-            fail(f"frame {k}: only {nfeat} features")
-        outs.append(out)
+        if out is not None:
+            outs.append(out)
+        if k > 2 and nfeat < 30:
+            fail(f"{name}, frame {k}: only {nfeat} features")
+    outs += system.drain()
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t_steady) / (frames
+                                                         - steady_from)
     launches = dict(lk_level=K.launches, lk_track=K.track_launches)
+    replays = sum(graph.replays.values())
+    steady = sum(steady_calls)
     stages = system.close()
-    if launches != dict(lk_level=0, lk_track=2 * FRAMES):
-        fail(f"LK kernel launches on the main path: {launches}, expected "
-             f"lk_track {2 * FRAMES} (one a track, two a frame) and no "
-             f"per-level lk_level launch")
-    print(f"slice: kernel launches {json.dumps(launches)}", flush=True)
-    est = np.stack([o.p for o in outs])
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if launches != dict(lk_level=0, lk_track=2 * frames):
+        fail(f"{name}: LK kernel launches {launches}, expected lk_track "
+             f"{2 * frames} (one a track, two a frame) and no per-level "
+             f"lk_level launch")
+    want = steady if use_megastep else 0
+    if replays != want:
+        fail(f"{name}: {replays} step replays for {steady} steady frames "
+             f"(expected {want})")
+    if len(outs) != frames or [o.timestamp for o in outs] != \
+            [float(t) for t in seq.frame_times[:frames]]:
+        fail(f"{name}: {len(outs)} outputs, not one per frame in order")
     if not all(np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
                for o in outs):
-        fail("non-finite estimator output")
-    if system.estimator.failed:
-        fail("estimator reported failure")
-    ate = frontend_sim.ate_rmse(est, seq.gt_p.numpy())
-    steady = float(np.mean(frame_ms[STEADY_FROM:]))
-    print(f"slice: ATE {ate:.4f} m (unaligned, gate {ATE_GATE_M} m), "
-          f"steady ms/frame (frames {STEADY_FROM}-{FRAMES - 1}) "
-          f"{steady:.2f}, first frame {frame_ms[0]:.1f} ms, "
-          f"peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+        fail(f"{name}: non-finite estimator output")
+    if est.failed:
+        fail(f"{name}: estimator reported failure")
+    p = np.stack([o.p for o in outs])
+    ate = frontend_sim.ate_rmse(p, seq.gt_p.numpy()[:frames])
+    segs = {str(k): [graph.segments(k), graph.host_syncs(k)]
+            for k in graph.chains}
+    print(f"{name}: kernel launches {json.dumps(launches)}, step replays "
+          f"{replays} for {steady} steady frames, graph segments and host "
+          f"syncs per replay (keyframe True/False) {json.dumps(segs)}",
           flush=True)
-    print("slice: stage means (ms, steady frames):",
-          json.dumps(stages), flush=True)
+    print(f"{name}: ATE {ate:.4f} m (unaligned, gate {ATE_GATE_M} m), "
+          f"steady ms/frame (frames {steady_from}-{frames - 1}, one "
+          f"synchronize at the end) {steady_ms:.2f}, peak device memory "
+          f"{peak:.1f} MiB", flush=True)
+    print(f"{name}: stage means (ms, steady frames):", json.dumps(stages),
+          flush=True)
+    print(f"{name}: host ms per call (no synchronize; the first steady "
+          f"frame captures the step graphs):",
+          json.dumps([round(t, 2) for t in frame_ms]), flush=True)
     if not ate < ATE_GATE_M:
-        fail(f"ATE {ate} m >= {ATE_GATE_M} m")
-    return launches
+        fail(f"{name}: ATE {ate} m >= {ATE_GATE_M} m")
+    return dict(launches=launches, p=p, graph=graph)
+
+
+def device_busy(torch, fn):
+    """(ms the card spent in kernels and copies during one call of fn,
+    CUDA-event ms of that call), from a torch.profiler trace; None where
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (busy_us / 1e3 if busy_us > 0 else None), a.elapsed_time(b)
+
+
+def chain_times(torch, chain, reps=20):
+    """CUDA-event ms of each graph segment and each host-synced call of a
+    graph chain, in the order of a full replay, mean over `reps`
+    replays after 3 warm-up ones: (segment ms, [[call, ms], ...])."""
+    sums = None
+    for rep in range(reps + 3):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark():
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+        chain.replay(mark)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        if rep >= 3:
+            sums = ms if sums is None else [x + y for x, y in zip(sums, ms)]
+    mean = [x / reps for x in sums]
+    return mean[0::2], [[fn.__name__, t]
+                        for (fn, _, _), t in zip(chain.calls, mean[1::2])]
+
+
+def step_times(torch, graph):
+    """CUDA-event ms of one eager step and of one replay of its graph
+    chain, per branch, on the graph's last inputs; of each graph segment
+    and each host-synced call of the chain alone; and the card's busy
+    time within one replay (profiler)."""
+    res = {}
+    for key in (True, False):
+        chain = graph.chains[key]
+        busy, wall = device_busy(torch, lambda: graph.replay(key))
+        segments, calls = chain_times(torch, chain)
+        res["keyframe" if key else "non-keyframe"] = dict(
+            replay_busy_ms=busy, replay_traced_ms=wall,
+            eager_ms=_timed(torch, lambda: graph.fn(key, graph.inputs), 3),
+            replay_ms=_timed(torch, lambda: graph.replay(key), 20),
+            segments_ms=segments, host_synced_ms=calls)
+    return res
+
+
+def graph_check_phase(torch, dev, seq):
+    """In float64 at the slice's widths on the scene's feature-domain
+    frames (the estimator alone, as tests/test_pipelined.py runs it):
+    the pipelined estimator's outputs against the sequential one's, and
+    a replay of each branch against the eager step on the last frame's
+    inputs, for both steps."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.estimator import step_check
+    from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                            EstimatorConfig)
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import obs_capacity
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    cfg = VioConfig()
+    F = cfg.num_frames
+    frames = frontend_sim.make_frames(seq, max_feats=N_FEAT,
+                                      pixel_noise=0.5)
+    pr, qr = seq.rig.right_extrinsics()
+    p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
+    q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
+    outs = {}
+    for pipelined in (False, True):
+        # the slice's widths: System's capacities for VioConfig defaults
+        est = Estimator(EstimatorConfig(
+            num_frames=F, obs_capacity=obs_capacity(cfg),
+            pipelined=pipelined, dtype=torch.float64), p_bc, q_bc,
+            device=dev)
+        est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                             sim.state_at(seq.frame_times[0])[2].numpy())
+        res = [est.process_frame(f, imu) for f, imu in frames]
+        res = [o for o in res if o is not None] + est.flush()
+        outs[pipelined] = {o.timestamp: o.p for o in res}
+        graph = est._pipe if pipelined else est._mega
+        if est.failed or len(res) != FRAMES \
+                or sum(graph.replays.values()) != FRAMES - F:
+            fail(f"graph check (pipelined {pipelined}): estimator failed, "
+                 f"{len(res)} outputs or {graph.replays} replays")
+        for key in (True, False):
+            eager = graph.fn(key, graph.inputs)
+            replay = graph.replay(key)
+            agree = step_check.agreement(est._consts, eager, replay)
+            print(f"graph check: pipelined {pipelined} keyframe {key}: "
+                  f"{graph.segments(key)} segments, {graph.host_syncs(key)}"
+                  f" host syncs, replay vs eager {json.dumps(agree)}",
+                  flush=True)
+            if not (agree["masks_equal"]
+                    and agree["pos_m"] <= REPLAY_POS_ATOL_M):
+                fail(f"graph replay differs from the eager step "
+                     f"(pipelined {pipelined}, keyframe {key}): {agree}")
+        del est, graph
+        torch.cuda.empty_cache()
+    gap = max(float(np.abs(p - outs[False][t]).max())
+              for t, p in outs[True].items())
+    print(f"graph check: pipelined against sequential, float64, {FRAMES} "
+          f"frames: max |p - p_sequential| {gap:.3e} m (bound "
+          f"{PIPE_POS_ATOL_M} m)", flush=True)
+    if not gap <= PIPE_POS_ATOL_M:
+        fail(f"pipelined parts from the sequential estimator by {gap} m")
 
 
 def main():
@@ -442,7 +638,19 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     timed = dict(zip(("lk_level", "lk_track"),
                      kernel_phase(torch, dev, imgs)))
-    launches = slice_phase(torch, dev, seq, imgs, imus)
+    seqr = run_slice(torch, dev, seq, imgs, imus, "slice")
+    print("slice: megastep eager vs replay (ms, float32, CUDA events):",
+          json.dumps(step_times(torch, seqr.pop("graph"))), flush=True)
+    graph_check_phase(torch, dev, seq)
+    p_pipe = run_slice(torch, dev, seq, imgs, imus, "pipelined",
+                       pipelined=True)["p"]
+    # float32 on the card: no gate (see the module docstring)
+    print(f"pipelined: max |p - p_sequential| "
+          f"{float(abs(p_pipe - seqr['p']).max()):.3e} m (float32)",
+          flush=True)
+    run_slice(torch, dev, seq, imgs, imus, "multi-dispatch",
+              frames=MULTI_FRAMES, use_megastep=False)
+    launches = seqr["launches"]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda",
         source="dynamic_vins_tpu_torch/csrc/lk_level.cu",

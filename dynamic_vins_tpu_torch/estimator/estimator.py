@@ -1,27 +1,37 @@
-"""Sliding-window visual-inertial estimator (the backend), synchronous
-multi-dispatch path.
+"""Sliding-window visual-inertial estimator (the backend).
 
 IMU interval preintegration, keyframe/parallax margin decision, stereo
 +IMU initialization with a gyro-bias solve, triangulation, windowed LM,
 outlier rejection, marginalization, window slide and failure detection.
 
 Split: this class is the frame-granularity host orchestrator. The
-window state, landmark bookkeeping and raw IMU buffers are host numpy
-(one packed transfer per stage); the preintegrations and the
-marginalization prior stay on the device; every heavy stage below is a
-torch function on the estimator's device.
+window state, landmark bookkeeping and raw IMU buffers are host numpy;
+the preintegrations and the marginalization prior stay on the device;
+every heavy stage below is a torch function on the estimator's device.
+Until the window is full and initialized, each stage is its own
+dispatch (the multi-dispatch path, also the whole path with
+`use_megastep=False`). After that, a frame is one step (`megastep`:
+one upload, one step, one fetch), which the card replays as a CUDA
+graph chain; with `pipelined`, the step keeps the window, depths, masks
+and obs pools on the device (`megastep_pipelined`) and the host reads
+each frame's results two frames later.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+from collections import deque
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from dynamic_vins_tpu_torch.estimator import triangulation
-from dynamic_vins_tpu_torch.estimator.feature_manager import FeatureManager
+from dynamic_vins_tpu_torch.estimator.feature_manager import (
+    DEFAULT_DEPTH, FeatureManager)
 from dynamic_vins_tpu_torch.factors import prior as prior_factor
 from dynamic_vins_tpu_torch.factors import projection
 from dynamic_vins_tpu_torch.geometry import lie, lie_np
@@ -29,11 +39,10 @@ from dynamic_vins_tpu_torch.imu import preintegration as pre
 from dynamic_vins_tpu_torch.solver import gauss_newton as gn
 from dynamic_vins_tpu_torch.solver import layout, marginalization as marg
 from dynamic_vins_tpu_torch.utils.precision import resolve_device
+from dynamic_vins_tpu_torch.utils.step_graph import StepGraph
 
 # ROADMAP.md names for the parts of the JAX estimator not ported yet
 _TODO = {
-    "use_megastep": "queue 1 item 9 (single-dispatch megastep)",
-    "pipelined": "queue 1 item 9 (pipelined steady state)",
     "mesh": "queue 1 item 18 (multi-GPU)",
     "use_line": "queue 1 item 13 (LinePoint)",
     "dynamic": "queue 1 item 15 (DYNAMIC)",
@@ -57,7 +66,10 @@ class EstimatorConfig:
     estimate_td: bool = False
     outlier_thresh: float = 3.0 / 460.0   # reproj err, normalized plane
     max_depth: float = 200.0
-    use_megastep: bool = False
+    use_megastep: bool = True      # the steady state as one step a frame
+    # device-resident steady state: frame k+1's step is dispatched
+    # before frame k's results are read; outputs lag 2 frames and keep
+    # their own timestamps
     pipelined: bool = False
     use_plane_constraint: bool = False
     dynamic: bool = False
@@ -133,7 +145,8 @@ def prepare_frame(flat, pres, e, acc, gyr, dts, mask, k, pnp_pack, F,
 def triangulate_slots(flat, anchors, tri_f, stereo_ok, two_ok, k, F,
                       max_depth):
     """Per-slot anchored triangulation; tri_f [L,6] = (ptl xy, ptr xy,
-    ptc xy). Stereo at the anchor where available, else anchor->k."""
+    ptc xy). Stereo at the anchor where available, else anchor->k. The
+    two DLT problems of every slot go to one batched SVD."""
     state = layout.WindowState.unpack(flat, F)
     ones = torch.ones_like(tri_f[:, :1])
     l = torch.cat([tri_f[:, 0:2], ones], dim=1)
@@ -144,13 +157,12 @@ def triangulate_slots(flat, anchors, tri_f, stereo_ok, two_ok, k, F,
         pa, qa, state.p_bc[0], state.q_bc[0]))
     p_cw1, q_cw1 = lie.pose_inverse(*lie.pose_compose(
         pa, qa, state.p_bc[1], state.q_bc[1]))
-    _, d_st = triangulation.triangulate_dlt(p_cw0, q_cw0, p_cw1, q_cw1,
-                                            l, r)
     p_cwk, q_cwk = lie.pose_inverse(*lie.pose_compose(
         state.p[k], state.q[k], state.p_bc[0], state.q_bc[0]))
-    _, d_tw = triangulation.triangulate_dlt(p_cw0, q_cw0, p_cwk, q_cwk,
-                                            l, c)
-    d = torch.where(stereo_ok, d_st, d_tw)
+    two = lambda a, b: torch.stack([a, b.expand_as(a)])
+    _, d = triangulation.triangulate_dlt(
+        p_cw0, q_cw0, two(p_cw1, p_cwk), two(q_cw1, q_cwk), l, two(r, c))
+    d = torch.where(stereo_ok, d[0], d[1])
     ok = (stereo_ok | two_ok) & (d > 0.1) & (d < max_depth) \
         & torch.isfinite(d)
     return d, ok
@@ -189,6 +201,386 @@ def marg_old_shifted(state, inv_depth, problem, drop_lm, pt0, config):
     new_inv = torch.where(re_ok, 1.0 / torch.clamp_min(d1, 1e-3),
                           inv_depth)
     return shifted, new_inv, re_ok
+
+
+# ----------------------------------------------------------------------
+# steady-state steps: one step a frame once the window is full. Each is
+# a pure function of (branch, inputs); `branch` is whether the frame is
+# a keyframe (marginalize the oldest frame) or not (drop the second
+# newest), known on the host before the step runs. On the card the
+# estimator replays each branch as a CUDA graph chain (StepGraph).
+# ----------------------------------------------------------------------
+
+class StepLayout:
+    """Named sections of a flat step buffer: {name: (start, stop)}."""
+
+    def __init__(self, sections):
+        self.off = {}
+        o = 0
+        for name, n in sections:
+            self.off[name] = (o, o + n)
+            o += n
+        self.size = o
+
+    def get(self, buf, name, shape=None):
+        a, b = self.off[name]
+        return buf[a:b] if shape is None else buf[a:b].reshape(shape)
+
+    def put(self, buf, name, value):
+        a, b = self.off[name]
+        buf[a:b] = np.ravel(value)
+
+
+class StepConsts(NamedTuple):
+    """What a steady-state step takes from the estimator's config."""
+
+    num_frames: int
+    lm_capacity: int
+    obs_capacity: int
+    imu_per_edge: int
+    use_imu: bool
+    max_depth: float
+    outlier_thresh: float
+    noise: pre.ImuNoise
+    solver: gn.SolverConfig
+    fixed: torch.Tensor          # [Dc] bool, tangent dims held fixed
+    pose0: torch.Tensor          # [Dc] bool, pose 0's dims
+
+    def mega_layouts(self):
+        """(float, int, output) layouts of the sequential megastep."""
+        F, L, Co, C = (self.num_frames, self.lm_capacity,
+                       self.obs_capacity, self.imu_per_edge)
+        S = sum(layout._SIZES(F))
+        fl = StepLayout([("flat", S), ("acc", 3 * (C + 1)),
+                         ("gyr", 3 * (C + 1)), ("dts", C), ("pnp", 6 * L),
+                         ("tri_f", 6 * L), ("of", 9 * Co), ("inv", L),
+                         ("pt0", 3 * L)])
+        il = StepLayout([("oi", 4 * Co), ("anchors", L), ("stereo", L),
+                         ("two", L), ("tri_req", L), ("solv", L),
+                         ("lmv", L), ("drop", L), ("ov", Co),
+                         ("imu_n", F - 1), ("n_e", 1)])
+        ol = StepLayout([("flat", S), ("dep", L), ("new_tri", L),
+                         ("bad", L), ("new_inv", L), ("re_ok", L),
+                         ("cost", 1)])
+        return fl, il, ol
+
+    def pipe_layouts(self):
+        """(float, int, output) layouts of the pipelined megastep."""
+        F, L, C = self.num_frames, self.lm_capacity, self.imu_per_edge
+        S = sum(layout._SIZES(F))
+        fl = StepLayout([("acc", 3 * (C + 1)), ("gyr", 3 * (C + 1)),
+                         ("dts", C), ("acc_m", 3 * (C + 1)),
+                         ("gyr_m", 3 * (C + 1)), ("dts_m", C),
+                         ("tri_f", 6 * L), ("obs_new", 8 * L),
+                         ("pt0", 3 * L), ("pt_a", 2 * L), ("pt_c", 2 * L)])
+        il = StepLayout([(n, L) for n in (
+            "anchors", "stereo", "two", "tri_req", "obs_ok", "cur_ok",
+            "hasobs1", "reset", "kill", "ho_k", "hr_k", "emit")]
+            + [("imu_n", F - 1), ("n_e", 1), ("n_m", 1)])
+        ol = StepLayout([("flat", S), ("dep", L), ("new_tri", L),
+                         ("bad", L), ("cost", 1), ("inv", L), ("dv", L)])
+        return fl, il, ol
+
+
+def _step_problem(c: StepConsts, oi, of, ov, pres, imu_valid, prior,
+                  lm_valid):
+    fixed = c.fixed
+    if not c.use_imu:
+        # visual-only: anchor the gauge on pose 0 until the prior takes
+        # over
+        fixed = fixed | (c.pose0 & ~prior.valid)
+    return gn.BAProblem(obs=projection.unpack_obs(oi, of, ov), pres=pres,
+                        imu_valid=imu_valid, prior=prior,
+                        lm_valid=lm_valid, fixed_cols=fixed)
+
+
+def _imu_valid(c: StepConsts, imu_n):
+    return (imu_n > 0) & c.use_imu
+
+
+def _marg_second_new_kept(prior, F):
+    """Drop pose F-2 from the prior and shift it, where a prior exists."""
+    pr2 = marg.shift_prior_after_slide_new(
+        marg.marginalize_second_new(prior, F))
+    return gn._select(prior.valid, pr2, prior)
+
+
+def megastep(is_keyframe: bool, inputs, c: StepConsts):
+    """The sequential steady-state frame as one step: IMU edge refresh,
+    propagation and PnP refine -> triangulation of the candidates -> LM
+    solve and outlier scores -> the outlier / negative-depth gate ->
+    marginalization (frame 0 with the prior's shift and the depth
+    re-anchoring, or the second-newest frame).
+
+    inputs: (float buffer, int buffer, preintegrations, prior), the
+    buffers laid out by `c.mega_layouts()`. Returns (preintegrations,
+    prior, output buffer)."""
+    fblob, iblob, pres, prior = inputs
+    F, L, Co, C = c.num_frames, c.lm_capacity, c.obs_capacity, \
+        c.imu_per_edge
+    fl, il, _ = c.mega_layouts()
+    f = lambda n, shape=None: fl.get(fblob, n, shape)
+    i = lambda n, shape=None: il.get(iblob, n, shape)
+    b = lambda n: i(n) != 0
+    dev = fblob.device
+
+    mask = torch.arange(C, device=dev) < i("n_e")
+    pres2, flat2, _ = prepare_frame(
+        f("flat"), pres, F - 2, f("acc", (C + 1, 3)), f("gyr", (C + 1, 3)),
+        f("dts"), mask, F - 1, f("pnp", (L, 6)), F, c.noise)
+    anchors = i("anchors")
+    d, tok = triangulate_slots(flat2, anchors, f("tri_f", (L, 6)),
+                               b("stereo"), b("two"), F - 1, F,
+                               c.max_depth)
+    new_tri = b("tri_req") & tok
+    inv_depth = torch.where(new_tri, 1.0 / torch.clamp_min(d, 1e-6),
+                            f("inv"))
+    lm_valid = b("lmv") | (new_tri & b("solv"))
+    oi, of = i("oi", (Co, 4)), f("of", (Co, 9))
+    ov2 = b("ov") & lm_valid[oi[:, 3]]
+    imu_valid = _imu_valid(c, i("imu_n"))
+    st, dep, cost, scores = solve_score(
+        layout.WindowState.unpack(flat2, F), inv_depth,
+        _step_problem(c, oi, of, ov2, pres2, imu_valid, prior, lm_valid),
+        c.solver)
+
+    # outlier + negative-depth gating before the marginalization (the
+    # multi-dispatch path prunes the pools between the two)
+    bad = ((scores > c.outlier_thresh) | (dep < 1e-4)) & lm_valid
+    lm_valid_m = lm_valid & ~bad
+    ov3 = ov2 & ~bad[oi[:, 3]]
+    drop = b("drop") | (new_tri & (anchors == 0))
+    if is_keyframe:
+        prior_out, new_inv, re_ok = marg_old_shifted(
+            st, dep, _step_problem(c, oi, of, ov3, pres2, imu_valid, prior,
+                                   lm_valid_m),
+            drop, f("pt0", (L, 3)), c.solver)
+    else:
+        prior_out = _marg_second_new_kept(prior, F)
+        new_inv, re_ok = dep, torch.zeros_like(new_tri)
+    dt = dep.dtype
+    out = torch.cat([st.pack(), dep, new_tri.to(dt), bad.to(dt), new_inv,
+                     re_ok.to(dt), cost[None]])
+    return pres2, prior_out, out
+
+
+def compact_nonzero(mask, size: int):
+    """(idx [size], n): the indices of mask's true entries in order,
+    padded with 0, and their count, `jnp.nonzero(mask, size=size,
+    fill_value=0)` with a fixed shape: a cumulative sum gives each true
+    entry its slot, a scatter writes it there (entries past `size` go to
+    a discarded slot). No host synchronization."""
+    pos = torch.cumsum(mask.long(), 0) - 1
+    slot = torch.where(mask & (pos < size), pos, size)
+    out = torch.zeros(size + 1, dtype=torch.long, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.numel(), device=mask.device))
+    return out[:size], pos[-1] + 1
+
+
+class PipeState(NamedTuple):
+    """The pipelined estimator's device-resident state."""
+
+    flat: torch.Tensor           # packed window state
+    inv: torch.Tensor            # [L] inverse depths
+    dv: torch.Tensor             # [L] depth valid
+    alive: torch.Tensor          # [L] slot active
+    pres: pre.Preintegration     # [F-1] edges
+    prior: prior_factor.MarginalPrior
+    obs: tuple   # pools [L,F,2] pt, vel, pt_right, vel_right; [L,F] masks
+
+
+def _with_col(t, j, col):
+    t = t.clone()
+    t[:, j] = col
+    return t
+
+
+def megastep_pipelined(is_keyframe: bool, inputs, c: StepConsts):
+    """The steady-state frame against device-resident state: applies the
+    host's lifecycle deltas ("reset wins"), builds the obs rows and the
+    PnP pack on the device, runs the megastep's stages and then the
+    window slide of both the state and the obs pools, so the next frame
+    needs nothing back from this one.
+
+    inputs: (float buffer, int buffer, PipeState), the buffers laid out
+    by `c.pipe_layouts()`. Returns (PipeState after the slide, output
+    buffer)."""
+    fblob, iblob, res = inputs
+    F, L, Co, C = c.num_frames, c.lm_capacity, c.obs_capacity, \
+        c.imu_per_edge
+    fl, il, _ = c.pipe_layouts()
+    f = lambda n, shape=None: fl.get(fblob, n, shape)
+    i = lambda n, shape=None: il.get(iblob, n, shape)
+    b = lambda n: i(n) != 0
+    dev, dt = fblob.device, fblob.dtype
+    anchors = i("anchors")
+    reset, kill = b("reset"), b("kill")
+
+    # resident obs pools: lifecycle, then the new frame's column; rows
+    # in the host's order (slot-major, frame, left before right)
+    pt_r, vel_r, ptr_r, velr_r, ho_r, hr_r = res.obs
+    clear = (kill | reset)[:, None]
+    ho_r = _with_col(ho_r & ~clear, F - 1, b("ho_k"))
+    hr_r = _with_col(hr_r & ~clear, F - 1, b("hr_k"))
+    obs_new = f("obs_new", (L, 8))
+    pt_r = _with_col(pt_r, F - 1, obs_new[:, 0:2])
+    vel_r = _with_col(vel_r, F - 1, obs_new[:, 2:4])
+    ptr_r = _with_col(ptr_r, F - 1, obs_new[:, 4:6])
+    velr_r = _with_col(velr_r, F - 1, obs_new[:, 6:8])
+    ff = torch.arange(F, device=dev)[None, :]
+    emit = b("emit")[:, None]
+    a_col = anchors[:, None]
+    sel_l = emit & ho_r & (ff > a_col)
+    sel_r = emit & hr_r & (ff >= a_col)
+    idx, n_rows = compact_nonzero(
+        torch.stack([sel_l, sel_r], dim=-1).reshape(-1), Co)
+    ov = torch.arange(Co, device=dev) < n_rows
+    s_i = idx // (2 * F)
+    f_i = (idx // 2) % F
+    c_i = idx % 2
+    a_i = anchors[s_i]
+    oi = torch.stack([a_i, f_i, c_i, s_i], dim=1)
+    a_cl = torch.clamp(a_i, 0, F - 1)
+    left = (c_i == 0)[:, None]
+    of = torch.cat([pt_r[s_i, a_cl],
+                    torch.where(left, pt_r[s_i, f_i], ptr_r[s_i, f_i]),
+                    vel_r[s_i, a_cl],
+                    torch.where(left, vel_r[s_i, f_i], velr_r[s_i, f_i]),
+                    torch.zeros((Co, 1), dtype=dt, device=dev)], dim=1)
+
+    # lifecycle deltas: a slot killed by the slide and allocated again
+    # in the same frame is reset (reset wins)
+    alive = (res.alive & ~kill) | reset
+    dv = res.dv & ~(reset | kill)
+    inv_depth = torch.where(reset | kill, 1.0 / DEFAULT_DEPTH, res.inv)
+
+    # PnP pack from the resident depths and state
+    st0 = layout.WindowState.unpack(res.flat, F)
+    pts_ca = torch.cat([f("pt_a", (L, 2)),
+                        torch.ones((L, 1), dtype=dt, device=dev)], dim=1) \
+        / torch.clamp_min(inv_depth, 1e-6)[:, None]
+    p_wc, q_wc = lie.pose_compose(st0.p[anchors], st0.q[anchors],
+                                  st0.p_bc[0][None, :],
+                                  st0.q_bc[0][None, :])
+    pw = lie.quat_rotate(q_wc, pts_ca) + p_wc
+    valid_pnp = b("cur_ok") & dv & alive
+    pnp_pack = torch.cat([pw, f("pt_c", (L, 2)), valid_pnp[:, None].to(dt)],
+                         dim=1)
+
+    mask_new = torch.arange(C, device=dev) < i("n_e")
+    pres2, flat2, _ = prepare_frame(
+        res.flat, res.pres, F - 2, f("acc", (C + 1, 3)),
+        f("gyr", (C + 1, 3)), f("dts"), mask_new, F - 1, pnp_pack, F,
+        c.noise)
+    gate = alive & ~dv
+    d, tok = triangulate_slots(flat2, anchors, f("tri_f", (L, 6)),
+                               b("stereo") & gate, b("two") & gate, F - 1,
+                               F, c.max_depth)
+    new_tri = b("tri_req") & tok & gate
+    inv2 = torch.where(new_tri, 1.0 / torch.clamp_min(d, 1e-6), inv_depth)
+    dv2 = dv | new_tri
+    lm_valid = alive & dv2 & b("obs_ok")
+    ov2 = ov & lm_valid[oi[:, 3]]
+    imu_valid = _imu_valid(c, i("imu_n"))
+    st, dep, cost, scores = solve_score(
+        layout.WindowState.unpack(flat2, F), inv2,
+        _step_problem(c, oi, of, ov2, pres2, imu_valid, res.prior,
+                      lm_valid), c.solver)
+
+    bad = ((scores > c.outlier_thresh) | (dep < 1e-4)) & lm_valid
+    alive2 = alive & ~bad
+    dv3 = dv2 & ~bad
+    lm_valid_m = lm_valid & ~bad
+    ov3 = ov2 & ~bad[oi[:, 3]]
+    inv3 = torch.where(lm_valid_m, dep, inv2)
+    if is_keyframe:
+        drop = alive & (anchors == 0) & dv2
+        prior_out, new_inv, re_ok = marg_old_shifted(
+            st, dep, _step_problem(c, oi, of, ov3, pres2, imu_valid,
+                                   res.prior, lm_valid_m),
+            drop, f("pt0", (L, 3)), c.solver)
+        sh = lambda a: torch.cat([a[1:], a[-1:]], dim=0)
+        st4 = st._replace(p=sh(st.p), q=sh(st.q), v=sh(st.v),
+                          ba=sh(st.ba), bg=sh(st.bg))
+        # slide_old's depth re-anchoring
+        sel = alive2 & (anchors == 0) & b("hasobs1") & dv3
+        inv4 = torch.where(sel & re_ok, new_inv, inv3)
+        dv4 = dv3 & ~(sel & ~re_ok)
+        pres4 = roll_edges(pres2)
+    else:
+        prior_out = _marg_second_new_kept(res.prior, F)
+
+        def cp(a):
+            a = a.clone()
+            a[F - 2] = a[F - 1]
+            return a
+
+        st4 = st._replace(p=cp(st.p), q=cp(st.q), v=cp(st.v),
+                          ba=cp(st.ba), bg=cp(st.bg))
+        # the merged edge F-3 (the host merges the raw samples)
+        one_m = pre.preintegrate(
+            f("acc_m", (C + 1, 3)), f("gyr_m", (C + 1, 3)), f("dts_m"),
+            st.ba[F - 3], st.bg[F - 3], noise=c.noise,
+            valid_mask=torch.arange(C, device=dev) < i("n_m"))
+        pres4 = set_edge(pres2, F - 3, one_m)
+        pres4 = set_edge(pres4, F - 2, pres4.map(lambda x: x[F - 2] * 0))
+        inv4, dv4 = inv3, dv3
+
+    # slide the obs pools as the state slid
+    def slide_tbl(t):
+        zero = torch.zeros_like(t[:, -1:])
+        if is_keyframe:
+            return torch.cat([t[:, 1:], zero], dim=1)
+        return torch.cat([t[:, :F - 2], t[:, F - 1:], zero], dim=1)
+
+    obs2 = tuple(slide_tbl(t) for t in
+                 (pt_r, vel_r, ptr_r, velr_r, ho_r, hr_r))
+    out = torch.cat([st.pack(), dep, new_tri.to(dt), bad.to(dt), cost[None],
+                     inv4, dv4.to(dt)])
+    return PipeState(st4.pack(), inv4, dv4, alive2, pres4, prior_out,
+                     obs2), out
+
+
+class _HostSlots:
+    """Host buffers of a step: float and int inputs to fill and the
+    output's landing buffer, pinned on the card. `depth` slots rotate;
+    a slot is reused once its output landed, so an upload in flight is
+    never overwritten."""
+
+    class Slot(NamedTuple):
+        f: torch.Tensor
+        i: torch.Tensor
+        o: torch.Tensor
+        done: Optional[torch.cuda.Event]
+
+    def __init__(self, layouts, dtype, on_card: bool, depth: int):
+        fl, il, ol = layouts
+        buf = lambda n, dt: torch.zeros(n, dtype=dt, pin_memory=on_card)
+        self.slots = [self.Slot(buf(fl.size, dtype), buf(il.size, torch.long),
+                                buf(ol.size, dtype),
+                                torch.cuda.Event() if on_card else None)
+                      for _ in range(depth)]
+        self.n = 0
+
+    def next(self):
+        slot = self.slots[self.n % len(self.slots)]
+        self.n += 1
+        if slot.done is not None:
+            slot.done.synchronize()
+        return slot
+
+    def send(self, slot, out):
+        """Start the copy of a step's output buffer into the slot."""
+        slot.o.copy_(out, non_blocking=slot.done is not None)
+        if slot.done is not None:
+            slot.done.record()
+
+    def result(self, slot):
+        """The slot's output as a numpy array of its own."""
+        if slot.done is not None:
+            slot.done.synchronize()
+        return slot.o.numpy().copy()
+
 
 
 class Estimator:
@@ -247,6 +639,28 @@ class Estimator:
         pose0[layout.pose_col(0):layout.pose_col(0) + 6] = True
         self._pose0_mask = torch.tensor(pose0, device=self.device)
         self._pres = self._preintegrate_all()
+
+        # steady state: the step functions (graph chains on the card,
+        # both branches captured at first use) and their host buffers
+        c = StepConsts(F, config.lm_capacity, config.obs_capacity, C,
+                       config.use_imu, config.max_depth,
+                       config.outlier_thresh, noise, self._solver_cfg,
+                       self._fixed, self._pose0_mask)
+        self._consts = c
+        self._mega = StepGraph(functools.partial(megastep, c=c),
+                               self.device, keys=(True, False))
+        self._pipe = StepGraph(functools.partial(megastep_pipelined, c=c),
+                               self.device, keys=(True, False))
+        self._mega_io = self._pipe_io = None
+        self._pipe_res = None
+        self._pipe_q = deque()
+        self._pipe_tri_hist = deque(maxlen=2)
+        # StageTimer for the steady state's stages (be.*), or None
+        self.timer = None
+
+    def _st(self, name: str):
+        return self.timer.stage(name) if self.timer is not None \
+            else contextlib.nullcontext()
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -335,6 +749,14 @@ class Estimator:
                      for fid, (pl, vl, _pr, _vr) in feats.items()}
         is_keyframe = self.fm.add_features(k, feats)
 
+        if cfg.use_megastep and self.initialized and k == F - 1:
+            if cfg.pipelined:
+                return self._megastep_frame_pipelined(is_keyframe)
+            self._megastep_frame(is_keyframe)
+            out = self._output(k)
+            self._slide(is_keyframe)
+            return out
+
         if k == 0:
             if cfg.use_imu and imu_interval is not None \
                     and not self._pose_preset:
@@ -364,14 +786,286 @@ class Estimator:
         return out
 
     def flush(self):
-        """In-flight outputs to drain: none on the synchronous path."""
-        return []
+        """Drain the pipelined frames in flight (outputs in order)."""
+        outs = []
+        while self._pipe_q:
+            o = self._pipe_drain_one()
+            if o is not None:
+                outs.append(o)
+        return outs
+
+    # ------------------------------------------------------------------
+    # steady state, sequential: one step a frame
+    # ------------------------------------------------------------------
+    def _own(self, tree):
+        """A step's outputs as tensors of the caller's own: on the card
+        they are the graph's static outputs, which the next replay
+        overwrites."""
+        if self._mega.on_card:
+            return pytree.tree_map(torch.clone, tree)
+        return tree
+
+    def _megastep_frame(self, is_keyframe: bool):
+        """Window full and initialized: pack the host tables into the
+        step's two input buffers, run the step (one graph chain on the
+        card), fetch its output buffer, write back."""
+        cfg = self.cfg
+        fm = self.fm
+        F = cfg.num_frames
+        k, e = F - 1, F - 2
+        fl, il, ol = self._consts.mega_layouts()
+        if self._mega_io is None:
+            self._mega_io = _HostSlots((fl, il, ol), self.dtype,
+                                       self._mega.on_card, depth=1)
+
+        with self._st("be.pack"):
+            stereo_ok, two_ok, tri_f = self._tri_candidates(k)
+            tri_req = stereo_ok | two_ok
+            total_obs = fm.has_obs.sum(1) + fm.has_right.sum(1)
+            solvable_if_tri = tri_req & (total_obs >= 2)
+            oi, of, ov, lm_valid_base = fm.build_obs_packed(
+                extra_mask=tri_req)
+            drop_base = fm.active & (fm.start_frame == 0) & fm.depth_valid
+            slot = self._mega_io.next()
+            fb, ib = slot.f.numpy(), slot.i.numpy()
+            for name, a in (("flat", self.state.pack()),
+                            ("acc", self.imu_acc[e]),
+                            ("gyr", self.imu_gyr[e]),
+                            ("dts", self.imu_dt[e]),
+                            ("pnp", self._pnp_pack(k)), ("tri_f", tri_f),
+                            ("of", of), ("inv", fm.inv_depth),
+                            ("pt0", fm.pt[:, 0])):
+                fl.put(fb, name, a)
+            for name, a in (("oi", oi), ("anchors", fm.start_frame),
+                            ("stereo", stereo_ok), ("two", two_ok),
+                            ("tri_req", tri_req), ("solv", solvable_if_tri),
+                            ("lmv", lm_valid_base), ("drop", drop_base),
+                            ("ov", ov), ("imu_n", self.imu_n),
+                            ("n_e", self.imu_n[e])):
+                il.put(ib, name, a)
+
+        with self._st("be.step"):
+            pres2, prior_out, out = self._mega(
+                is_keyframe, (slot.f, slot.i, self._pres, self.prior))
+            self._pres = self._own(pres2)
+            prior_out = self._own(prior_out)
+            self._mega_io.send(slot, out)
+        with self._st("be.fetch"):
+            ob = self._mega_io.result(slot)
+
+        if not np.isfinite(float(ol.get(ob, "cost")[0])):
+            self.failed = True
+            return
+        self.state = layout.WindowState.unpack(ol.get(ob, "flat").copy(),
+                                               F)
+        dep = ol.get(ob, "dep")
+        new_tri = ol.get(ob, "new_tri") > 0.5
+        fm.inv_depth[new_tri] = dep[new_tri]
+        fm.depth_valid[new_tri] = True
+        fm.set_depths(dep, valid_update=lm_valid_base
+                      | (new_tri & solvable_if_tri))
+        fm.remove_outliers(ol.get(ob, "bad") > 0.5)
+        self._check_failure()
+        self.prior = prior_out
+        if is_keyframe:
+            self._reanchored = (None, ol.get(ob, "new_inv").copy(),
+                                ol.get(ob, "re_ok") > 0.5)
+
+    # ------------------------------------------------------------------
+    # steady state, pipelined: device-resident state, 2 frames in flight
+    # ------------------------------------------------------------------
+    def _pipe_prime(self):
+        """Push the host mirrors to the device residents (mode entry)."""
+        fm = self.fm
+        self._pipe_res = PipeState(
+            self._f(self.state.pack()), self._f(fm.inv_depth),
+            self._i(fm.depth_valid.copy()), self._i(fm.active.copy()),
+            self._pres, self.prior,
+            (self._f(fm.pt[:, :, :2]), self._f(fm.vel[:, :, :2]),
+             self._f(fm.pt_right[:, :, :2]), self._f(fm.vel_right[:, :, :2]),
+             self._i(fm.has_obs.copy()), self._i(fm.has_right.copy())))
+        self._pipe_q.clear()
+        self._pipe_tri_hist.clear()
+
+    def _megastep_frame_pipelined(self, is_keyframe: bool):
+        """Dispatch this frame's step against the device residents, after
+        draining the oldest in-flight frame if 2 are; returns that
+        frame's output (its own timestamp) or None."""
+        k = self.cfg.num_frames - 1
+        fl, il, ol = self._consts.pipe_layouts()
+        if self._pipe_res is None:
+            self._pipe_prime()
+        if self._pipe_io is None:
+            # 2 frames in flight and 1 being packed
+            self._pipe_io = _HostSlots((fl, il, ol), self.dtype,
+                                       self._pipe.on_card, depth=3)
+
+        out = None
+        if len(self._pipe_q) >= 2:
+            with self._st("be.drain"):
+                out = self._pipe_drain_one()
+            if self.failed:
+                return out
+        with self._st("be.pack"):
+            slot = self._pipe_pack(is_keyframe, fl, il)
+        with self._st("be.step"):
+            self._pipe_res, dev_out = self._pipe(
+                is_keyframe, (slot.f, slot.i, self._pipe_res))
+            self._pipe_io.send(slot, dev_out)
+        self._pipe_q.append((slot, float(self.timestamps[k]),
+                             bool(is_keyframe)))
+        self._slide_host_only(is_keyframe)
+        return out
+
+    def _pipe_pack(self, is_keyframe: bool, fl, il):
+        """The next host slot, filled with this frame's step inputs: the
+        host's hints and the raw samples."""
+        cfg = self.cfg
+        fm = self.fm
+        F = cfg.num_frames
+        k, e = F - 1, F - 2
+        L, C = cfg.lm_capacity, cfg.imu_per_edge
+
+        # hints from the host mirrors (up to 2 frames stale; the device's
+        # resident masks decide)
+        new_slots = fm.last_new_slots.copy()
+        kill = fm.last_slide_dead.copy()
+        fm.last_slide_dead = np.zeros(L, bool)
+        cur_ok = fm.active & fm.has_obs[:, k] & (fm.start_frame < k)
+        total_obs = fm.has_obs.sum(1) + fm.has_right.sum(1)
+        obs_ok = fm.active & (total_obs >= 2)
+        anchors = fm.start_frame
+        stereo_ok, two_ok, tri_f = self._tri_candidates(k)
+        tri_req = stereo_ok | two_ok
+        # rows also for slots hinted in the last 2 frames: the device may
+        # have triangulated them in a step the mirror has not seen yet
+        extra = tri_req.copy()
+        for h in self._pipe_tri_hist:
+            extra |= h
+        self._pipe_tri_hist.append(tri_req.copy())
+
+        # the merged edge of a non-keyframe slide (host raw samples)
+        if is_keyframe:
+            acc_m, gyr_m = np.zeros((C + 1, 3)), np.zeros((C + 1, 3))
+            dts_m, n_m = np.zeros(C), 0
+        else:
+            acc_m, gyr_m, dts_m, n_m = self._merged_last_edges()
+
+        slot = self._pipe_io.next()
+        fb, ib = slot.f.numpy(), slot.i.numpy()
+        obs_new = np.concatenate(
+            [fm.pt[:, k, :2], fm.vel[:, k, :2], fm.pt_right[:, k, :2],
+             fm.vel_right[:, k, :2]], axis=1)
+        for name, a in (
+                ("acc", self.imu_acc[e]), ("gyr", self.imu_gyr[e]),
+                ("dts", self.imu_dt[e]), ("acc_m", acc_m), ("gyr_m", gyr_m),
+                ("dts_m", dts_m), ("tri_f", tri_f), ("obs_new", obs_new),
+                ("pt0", fm.pt[:, 0]),
+                ("pt_a", fm.pt[np.arange(L), np.minimum(anchors, F - 1),
+                               :2]),
+                ("pt_c", fm.pt[:, k, :2])):
+            fl.put(fb, name, a)
+        for name, a in (
+                ("anchors", anchors), ("stereo", stereo_ok),
+                ("two", two_ok), ("tri_req", tri_req), ("obs_ok", obs_ok),
+                ("cur_ok", cur_ok), ("hasobs1", fm.has_obs[:, 1]),
+                ("reset", new_slots), ("kill", kill),
+                ("ho_k", fm.has_obs[:, k]), ("hr_k", fm.has_right[:, k]),
+                ("emit", fm.obs_emit_mask(extra_mask=extra)),
+                ("imu_n", self.imu_n), ("n_e", self.imu_n[e]),
+                ("n_m", n_m)):
+            il.put(ib, name, a)
+        return slot
+
+    def _pipe_drain_one(self) -> Optional[OdometryOut]:
+        """Wait for the oldest in-flight frame; update the host mirrors."""
+        fm = self.fm
+        F = self.cfg.num_frames
+        ol = self._consts.pipe_layouts()[2]
+        slot, t_k, was_kf = self._pipe_q.popleft()
+        ob = self._pipe_io.result(slot)
+        if not np.isfinite(float(ol.get(ob, "cost")[0])):
+            self.failed = True
+            return None
+        st3 = layout.WindowState.unpack(ol.get(ob, "flat").copy(), F)
+        out = OdometryOut(timestamp=t_k, p=st3.p[F - 1].copy(),
+                          q=st3.q[F - 1].copy(), v=st3.v[F - 1].copy())
+        # the mirror: the drained frame's state after its slide
+        for a in (st3.p, st3.q, st3.v, st3.ba, st3.bg):
+            if was_kf:
+                a[:-1] = a[1:].copy()
+            else:
+                a[F - 2] = a[F - 1]
+        self.state = st3
+        # landmark mirrors are slot-indexed: the slide does not move them
+        fm.inv_depth[:] = ol.get(ob, "inv")
+        fm.depth_valid[:] = (ol.get(ob, "dv") > 0.5) & fm.active
+        fm.remove_outliers(ol.get(ob, "bad") > 0.5)
+        self._check_failure()
+        self._latest = {
+            "t": t_k, "p": out.p.copy(), "q": out.q.copy(),
+            "v": out.v.copy(), "ba": st3.ba[F - 1].copy(),
+            "bg": st3.bg[F - 1].copy(), "acc": self._acc0.copy(),
+            "gyr": self._gyr0.copy()}
+        return out
+
+    def _slide_host_only(self, old: bool):
+        """The host bookkeeping of a slide; the pipelined step slid the
+        device residents (state, depths, preintegrations, prior, pools)."""
+        cfg = self.cfg
+        F = cfg.num_frames
+        if old:
+            # the depths arrive with the drain
+            self.fm.slide_old(lambda slots: self.fm.inv_depth[slots])
+            self.timestamps[:-1] = self.timestamps[1:].copy()
+            for a in (self.imu_acc, self.imu_gyr, self.imu_dt, self.imu_n):
+                a[:-1] = a[1:].copy()
+            self.imu_n[-1] = 0
+            self.imu_dt[-1] = 0
+        else:
+            self.timestamps[F - 2] = self.timestamps[F - 1]
+            self._merge_last_edges()
+            self.fm.slide_new()
+        self.frame_count = F - 1
+
+    def _merged_last_edges(self):
+        """Edge F-3's samples with edge F-2's appended, as a non-keyframe
+        slide merges them: copies (acc [C+1,3], gyr, dts [C], count)."""
+        F, C = self.cfg.num_frames, self.cfg.imu_per_edge
+        e2, e1 = F - 3, F - 2
+        n2, n1 = int(self.imu_n[e2]), int(self.imu_n[e1])
+        take = max(min(n1, C - n2), 0)
+        acc, gyr, dts = (a[e2].copy()
+                         for a in (self.imu_acc, self.imu_gyr, self.imu_dt))
+        acc[n2 + 1:n2 + take + 1] = self.imu_acc[e1, 1:take + 1]
+        gyr[n2 + 1:n2 + take + 1] = self.imu_gyr[e1, 1:take + 1]
+        dts[n2:n2 + take] = self.imu_dt[e1, :take]
+        return acc, gyr, dts, n2 + take
+
+    def _merge_last_edges(self):
+        """Append edge F-2's samples to edge F-3 (a non-keyframe slide)."""
+        e2, e1 = self.cfg.num_frames - 3, self.cfg.num_frames - 2
+        (self.imu_acc[e2], self.imu_gyr[e2], self.imu_dt[e2],
+         self.imu_n[e2]) = self._merged_last_edges()
+        self.imu_n[e1] = 0
+        self.imu_dt[e1] = 0
 
     def _prepare(self, k):
         cfg = self.cfg
-        fm = self.fm
         e = min(k - 1, cfg.num_frames - 2)
-        pnp_pack = np.zeros((cfg.lm_capacity, 6))
+        pres2, flat, _ = prepare_frame(
+            self._f(self.state.pack()), self._pres, e,
+            self._f(self.imu_acc[e]), self._f(self.imu_gyr[e]),
+            self._f(self.imu_dt[e]), self._edge_mask(e), k,
+            self._f(self._pnp_pack(k)), cfg.num_frames, self.noise)
+        self._pres = pres2
+        self.state = self._unpack_host(flat)
+
+    def _pnp_pack(self, k):
+        """[L,6] PnP rows for frame k: world point, normalized obs, valid
+        (all zero below 6 correspondences)."""
+        fm = self.fm
+        pnp_pack = np.zeros((self.cfg.lm_capacity, 6))
         slots = np.flatnonzero(fm.active & fm.depth_valid
                                & fm.has_obs[:, k] & (fm.start_frame < k))
         if slots.size >= 6:
@@ -379,13 +1073,7 @@ class Estimator:
                 self._landmark_world_positions(slots)
             pnp_pack[:slots.size, 3:5] = fm.pt[slots, k, :2]
             pnp_pack[:slots.size, 5] = 1.0
-        pres2, flat, _ = prepare_frame(
-            self._f(self.state.pack()), self._pres, e,
-            self._f(self.imu_acc[e]), self._f(self.imu_gyr[e]),
-            self._f(self.imu_dt[e]), self._edge_mask(e), k,
-            self._f(pnp_pack), cfg.num_frames, self.noise)
-        self._pres = pres2
-        self.state = self._unpack_host(flat)
+        return pnp_pack
 
     def _landmark_world_positions(self, slots):
         fm = self.fm
@@ -403,6 +1091,24 @@ class Estimator:
         anchor -> current), all slots in one dispatch."""
         cfg = self.cfg
         fm = self.fm
+        stereo_ok, two_ok, tri_f = self._tri_candidates(k)
+        if not (stereo_ok.any() or two_ok.any()):
+            return
+        d, ok = triangulate_slots(
+            self._f(self.state.pack()),
+            self._i(fm.start_frame.astype(np.int64)), self._f(tri_f),
+            self._i(stereo_ok), self._i(two_ok), k, cfg.num_frames,
+            cfg.max_depth)
+        d = self._host(d)
+        ok = self._host(ok) & (stereo_ok | two_ok)
+        fm.inv_depth[ok] = 1.0 / d[ok]
+        fm.depth_valid[ok] = True
+
+    def _tri_candidates(self, k):
+        """Slots to triangulate at frame k: (stereo_ok [L], two_ok [L],
+        tri_f [L,6] = anchor left xy, anchor right xy, frame-k xy)."""
+        cfg = self.cfg
+        fm = self.fm
         cap = cfg.lm_capacity
         need = fm.active & ~fm.depth_valid & (fm.start_frame <= k)
         stereo_ok = np.zeros(cap, bool)
@@ -418,17 +1124,7 @@ class Estimator:
                 two_ok[sl] = True
                 tri_f[sl, 0:2] = fm.pt[sl, a, :2]
                 tri_f[sl, 4:6] = fm.pt[sl, k, :2]
-        if not (stereo_ok.any() or two_ok.any()):
-            return
-        d, ok = triangulate_slots(
-            self._f(self.state.pack()),
-            self._i(fm.start_frame.astype(np.int64)), self._f(tri_f),
-            self._i(stereo_ok), self._i(two_ok), k, cfg.num_frames,
-            cfg.max_depth)
-        d = self._host(d)
-        ok = self._host(ok) & (stereo_ok | two_ok)
-        fm.inv_depth[ok] = 1.0 / d[ok]
-        fm.depth_valid[ok] = True
+        return stereo_ok, two_ok, tri_f
 
     def _initialize(self):
         """Stereo (+IMU) initialization: gyro bias from visual vs
@@ -559,17 +1255,7 @@ class Estimator:
                 a[F2] = a[F1]
             self.timestamps[F2] = self.timestamps[F1]
             e2, e1 = F - 3, F - 2
-            n2, n1 = int(self.imu_n[e2]), int(self.imu_n[e1])
-            take = min(n1, cfg.imu_per_edge - n2)
-            if take > 0:
-                self.imu_acc[e2, n2 + 1:n2 + take + 1] = \
-                    self.imu_acc[e1, 1:take + 1]
-                self.imu_gyr[e2, n2 + 1:n2 + take + 1] = \
-                    self.imu_gyr[e1, 1:take + 1]
-                self.imu_dt[e2, n2:n2 + take] = self.imu_dt[e1, :take]
-                self.imu_n[e2] = n2 + take
-            self.imu_n[e1] = 0
-            self.imu_dt[e1] = 0
+            self._merge_last_edges()
             self._refresh_edge(e2)
             self._pres = set_edge(self._pres, e1,
                                   self._pres.map(lambda x: x[e1] * 0))

@@ -49,6 +49,11 @@ class FeatureManager:
         self.inv_depth = np.full(L, 1.0 / DEFAULT_DEPTH)
         self.depth_valid = np.zeros(L, bool)
         self._id_to_slot: dict = {}
+        # per-frame lifecycle deltas for the pipelined estimator's
+        # device-resident masks: slots allocated by the last
+        # add_features, slots killed by the last slide
+        self.last_new_slots = np.zeros(L, bool)
+        self.last_slide_dead = np.zeros(L, bool)
 
     # ------------------------------------------------------------------
     # frame ingestion
@@ -62,6 +67,7 @@ class FeatureManager:
         continuing tracks or mean compensated parallax is large.
         """
         last_track_num = 0
+        self.last_new_slots = np.zeros(self.capacity, bool)
         for fid, (pl, vl, pr, vr) in feats.items():
             slot = self._id_to_slot.get(fid)
             if slot is None:
@@ -72,6 +78,7 @@ class FeatureManager:
                 self.active[slot] = True
                 self.feature_id[slot] = fid
                 self.start_frame[slot] = frame
+                self.last_new_slots[slot] = True
             else:
                 last_track_num += 1
             self.has_obs[slot, frame] = True
@@ -114,11 +121,16 @@ class FeatureManager:
                          torch.tensor(valid, device=device))
         return obs, torch.tensor(mask, device=device)
 
-    def build_obs_packed(self):
+    def build_obs_packed(self, extra_mask=None):
         """Packed obs table for single-transfer upload: returns numpy
-        (ints [C,4], floats [C,9], valid [C], lm_valid [L])."""
+        (ints [C,4], floats [C,9], valid [C], lm_valid [L]).
+
+        extra_mask: slots to emit rows for as well (the megastep's
+        triangulation candidates, whose rows the step gates by the
+        validity it computes)."""
         mask = self.solvable_mask()
-        slots = np.flatnonzero(mask)
+        slots = np.flatnonzero(mask if extra_mask is None
+                               else (mask | extra_mask))
         C = self.obs_capacity
         oi = np.zeros((C, 4), np.int32)
         of = np.zeros((C, 9))
@@ -165,14 +177,25 @@ class FeatureManager:
         valid[sl] = True
         return oi, of, valid, mask
 
+    def obs_emit_mask(self, extra_mask=None):
+        """The slots `build_obs_packed(extra_mask)` emits rows for
+        (solvable or extra, with an anchor observation), as one [L] mask:
+        the pipelined step builds the rows on the device from it."""
+        mask = self.solvable_mask()
+        m = mask if extra_mask is None else (mask | extra_mask)
+        A = np.minimum(self.start_frame, self.num_frames - 1)
+        return m & self.has_obs[np.arange(self.capacity), A]
+
     # ------------------------------------------------------------------
     # depth management
     # ------------------------------------------------------------------
-    def set_depths(self, inv_depth):
-        """Write back solved inverse depths; cull negative depths
-        (reference removes landmarks that solve to negative depth)."""
+    def set_depths(self, inv_depth, valid_update=None):
+        """Write back solved inverse depths of the solvable slots (or of
+        `valid_update`); cull negative depths (reference removes
+        landmarks that solve to negative depth)."""
         inv_depth = np.asarray(inv_depth)
-        mask = self.solvable_mask()
+        mask = self.solvable_mask() if valid_update is None \
+            else np.asarray(valid_update)
         self.inv_depth[mask] = inv_depth[mask]
         bad = mask & (inv_depth < 1e-4)
         self._remove_slots(np.flatnonzero(bad))
@@ -224,6 +247,7 @@ class FeatureManager:
 
         # drop landmarks with no remaining obs
         dead = self.active & ~self.has_obs.any(axis=1)
+        self.last_slide_dead = dead.copy()
         self._remove_slots(np.flatnonzero(dead))
 
     def slide_new(self):
@@ -240,4 +264,5 @@ class FeatureManager:
         self.has_obs[:, f_new] = False
         self.has_right[:, f_new] = False
         dead = self.active & ~self.has_obs.any(axis=1)
+        self.last_slide_dead = dead.copy()
         self._remove_slots(np.flatnonzero(dead))

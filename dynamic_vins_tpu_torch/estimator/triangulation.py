@@ -11,6 +11,7 @@ import torch
 from torch.func import jacfwd
 
 from dynamic_vins_tpu_torch.geometry import lie
+from dynamic_vins_tpu_torch.utils.step_graph import host_synced
 
 
 def triangulate_dlt(p_cw0, q_cw0, p_cw1, q_cw1, pt0, pt1):
@@ -35,7 +36,8 @@ def triangulate_dlt(p_cw0, q_cw0, p_cw1, q_cw1, pt0, pt1):
         pt1[..., 0:1] * P1[..., 2, :] - P1[..., 0, :],
         pt1[..., 1:2] * P1[..., 2, :] - P1[..., 1, :],
     ], dim=-2)
-    X = torch.linalg.svd(A).Vh[..., -1, :]
+    # the SVD checks its convergence on the host: a graph segment ends
+    X = host_synced(torch.linalg.svd, A)[2][..., -1, :]
     pw = X[..., :3] / X[..., 3:4]
     depth0 = torch.sum(R0[..., 2, :] * pw, dim=-1) + p_cw0[..., 2]
     return pw, depth0
@@ -68,7 +70,9 @@ def pnp_gauss_newton(pts_w, pts_norm, valid, p_cw0, q_cw0,
         w = torch.where(valid, w, 0.0)[:, None]
         rw = (r * w).reshape(-1)
         Jw = (J * w[..., None]).reshape(-1, 6)
-        delta = -torch.linalg.solve(Jw.T @ Jw + 1e-8 * eye6, Jw.T @ rw)
+        # solve_ex: the same LU solve, without solve's host-side check
+        delta = -torch.linalg.solve_ex(Jw.T @ Jw + 1e-8 * eye6,
+                                       Jw.T @ rw)[0]
         p_cw, q_cw = lie.pose_boxplus(p_cw, q_cw, delta)
     err = torch.linalg.vector_norm(residual(zero, p_cw, q_cw), dim=-1)
     nv = torch.clamp_min(valid.sum(), 1)

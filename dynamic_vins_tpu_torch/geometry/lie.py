@@ -29,7 +29,8 @@ def _norm(x, keepdim=False):
 # ---------------------------------------------------------------------------
 
 def quat_identity(dtype=torch.float32, device=None):
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    # made on the device (no host copy), so a CUDA graph can capture it
+    return torch.eye(4, dtype=dtype, device=device)[0]
 
 
 def quat_normalize(q):
@@ -258,7 +259,7 @@ def quat_from_yaw(yaw):
 def g2R(g):
     """Rotation aligning measured gravity to +Z, yaw removed (g2R)."""
     ng1 = g / _norm(g, keepdim=True)
-    ng2 = torch.tensor([0.0, 0.0, 1.0], dtype=g.dtype, device=g.device)
+    ng2 = torch.eye(3, dtype=g.dtype, device=g.device)[2]
     axis = _cross(ng1, ng2)
     s = _norm(axis)
     c = torch.sum(ng1 * ng2, dim=-1)

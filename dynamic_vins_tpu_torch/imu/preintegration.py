@@ -40,7 +40,8 @@ GRAVITY_Z = 9.81
 
 
 def gravity(dtype, device=None):
-    return torch.tensor([0.0, 0.0, GRAVITY_Z], dtype=dtype, device=device)
+    # made on the device (no host copy), so a CUDA graph can capture it
+    return GRAVITY_Z * torch.eye(3, dtype=dtype, device=device)[2]
 
 
 class Preintegration(NamedTuple):
@@ -95,8 +96,8 @@ class Preintegration(NamedTuple):
 def _noise_diag(noise: ImuNoise, dtype, device):
     vals = [noise.acc_n ** 2, noise.gyr_n ** 2, noise.acc_n ** 2,
             noise.gyr_n ** 2, noise.acc_w ** 2, noise.gyr_w ** 2]
-    return torch.tensor([v for v in vals for _ in range(3)], dtype=dtype,
-                        device=device)
+    return torch.cat([torch.full((3,), v, dtype=dtype, device=device)
+                      for v in vals])
 
 
 def _step_matrices(R0, R1, un_gyr, a0, a1, dt):

@@ -87,7 +87,9 @@ def _assemble_proj_rows(j_cam, obs, F, D):
     (always cam 0), [18:24) dex_j (cam_j), [24] dtd."""
     n = j_cam.shape[0]
     dt = j_cam.dtype
-    oh = lambda idx, k: torch.nn.functional.one_hot(idx, k).to(dt)
+    # one_hot by comparison: F.one_hot checks its range on the host
+    oh = lambda idx, k: (idx[:, None] == torch.arange(
+        k, device=idx.device)).to(dt)
     oh_i = oh(obs.frame_i, F)
     oh_j = oh(obs.frame_j, F)
     pose = (j_cam[:, :, None, 0:6] * oh_i[:, None, :, None]
@@ -138,7 +140,8 @@ def build_normal_equations(state: layout.WindowState, inv_depth,
     J_proj = _assemble_proj_rows(j_cam, problem.obs, F, D)
     r_proj = r_p.reshape(2 * N)
     jl = j_dep.reshape(2 * N)
-    lm_flat = torch.repeat_interleave(problem.obs.lm, 2)
+    # repeat_interleave would read its output size on the host
+    lm_flat = problem.obs.lm[:, None].expand(-1, 2).reshape(-1)
     H_ll = _segment_sum(jl * jl, lm_flat, L)
     H_lc = _segment_sum(jl[:, None] * J_proj, lm_flat, L)
     b_l = _segment_sum(jl * r_proj, lm_flat, L)
@@ -239,7 +242,7 @@ def solve(state: layout.WindowState, inv_depth, problem: BAProblem,
     dtype, device = state.p.dtype, state.p.device
     eq = build_normal_equations(state, inv_depth, problem, config)
     init_cost = cost = eq.cost
-    lam = torch.tensor(config.init_lambda, dtype=dtype, device=device)
+    lam = torch.full((), config.init_lambda, dtype=dtype, device=device)
     st, dep = state, inv_depth
     accepted = []
     for _ in range(config.max_iters):

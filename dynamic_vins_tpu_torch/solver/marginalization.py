@@ -14,6 +14,7 @@ import torch
 from dynamic_vins_tpu_torch.factors import prior as prior_factor
 from dynamic_vins_tpu_torch.solver import gauss_newton as gn
 from dynamic_vins_tpu_torch.solver import layout
+from dynamic_vins_tpu_torch.utils.step_graph import host_synced
 
 _EIG_EPS = 1e-8
 
@@ -49,7 +50,8 @@ def _eig_pinv(A):
     equilibrated matrix."""
     A = 0.5 * (A + A.T)
     s = _equilibrate(A)
-    w, V = torch.linalg.eigh(A * s[:, None] * s[None, :])
+    # eigh checks its result on the host: a graph segment ends here
+    w, V = host_synced(torch.linalg.eigh, A * s[:, None] * s[None, :])
     thr = _eig_threshold(w)
     inv_w = torch.where(w > thr, 1.0 / torch.maximum(w, thr), 0.0)
     return (s[:, None] * V * inv_w[None, :]) @ (V.T * s[None, :])
@@ -63,7 +65,7 @@ def _schur_eliminate(H, b, drop_idx):
     S = H - Hkd @ inv @ Hkd.T
     bk = b - Hkd @ (inv @ b[drop_idx])
     keep = torch.ones(H.shape[0], dtype=H.dtype, device=H.device)
-    keep[drop_idx] = 0.0
+    keep.index_fill_(0, drop_idx, 0.0)
     return S * keep[:, None] * keep[None, :], bk * keep
 
 
@@ -72,7 +74,7 @@ def _sqrt_factorize(S, b):
     equilibrated system (S = D^1/2 Ss D^1/2, J0 = sqrt(w) Vᵀ D^1/2)."""
     S = 0.5 * (S + S.T)
     s = _equilibrate(S)
-    w, V = torch.linalg.eigh(S * s[:, None] * s[None, :])
+    w, V = host_synced(torch.linalg.eigh, S * s[:, None] * s[None, :])
     thr = _eig_threshold(w)
     pos = w > thr
     sqrt_w = torch.where(pos, torch.sqrt(torch.maximum(w, thr)), 0.0)
@@ -152,9 +154,11 @@ def _shift_perm_old(F: int, device):
         c = layout.speedbias_col(j, F)
         src[c:c + 9] = layout.speedbias_col(j + 1, F) + torch.arange(
             9, device=device)
-    keep[layout.pose_col(F - 1):layout.pose_col(F - 1) + 6] = False
+    # fill_, not `= False`: a Python value assigned into a device
+    # tensor is copied from the host
+    keep[layout.pose_col(F - 1):layout.pose_col(F - 1) + 6].fill_(False)
     c = layout.speedbias_col(F - 1, F)
-    keep[c:c + 9] = False
+    keep[c:c + 9].fill_(False)
     return src, keep
 
 

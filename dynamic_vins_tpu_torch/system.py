@@ -1,16 +1,21 @@
-"""System orchestration, RAW mode, synchronous path: images (+IMU) ->
-feature tracker -> sliding-window estimator -> TUM trajectory.
+"""System orchestration, RAW mode: images (+IMU) -> feature tracker ->
+sliding-window estimator -> TUM trajectory.
 
-Built from one `VioConfig` like the JAX package's System. The NAIVE and
-DYNAMIC modes, lines, online perception, loop closure, the multi-device
-engine and the pipelined frontend are not ported yet and raise.
+Built from one `VioConfig` like the JAX package's System. With
+`VioConfig.pipelined` the frontend runs two frames ahead of the backend
+(each frame's tracker step is dispatched before the oldest one is
+collected) and the estimator keeps its steady state on the device, so
+`process` returns the output of an earlier frame, or None; `close`
+drains every frame in flight. The NAIVE and DYNAMIC modes, lines,
+online perception, loop closure and the multi-device engine are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -27,7 +32,6 @@ from dynamic_vins_tpu_torch.utils.timing import StageTimer
 
 # VioConfig switches of paths not ported yet -> ROADMAP.md queue-1 item
 _TODO = {
-    "pipelined": "item 9 (pipelined steady state)",
     "use_line": "item 13 (LinePoint)",
     "det2d_online": "item 16 (perception nets)",
     "det3d_online": "item 16 (perception nets)",
@@ -36,6 +40,16 @@ _TODO = {
     "use_reid": "item 16 (perception nets)",
     "use_loop_closure": "item 17 (loop closure)",
 }
+
+
+def obs_capacity(cfg: VioConfig) -> int:
+    """The estimator's obs rows for a config: kMaxCnt x window x stereo,
+    rounded up to a power of two (at least 1024); the step graphs are
+    captured at this size."""
+    cap = 1024
+    while cap < cfg.max_cnt * cfg.num_frames * 2:
+        cap *= 2
+    return cap
 
 
 @dataclass
@@ -86,28 +100,41 @@ class System:
             device=self.device)
         self.tracker.timer = self.timer
 
-        # obs capacity sized to the config: kMaxCnt x window x stereo
-        obs_cap = 1024
-        while obs_cap < cfg.max_cnt * cfg.num_frames * 2:
-            obs_cap *= 2
         self.estimator = Estimator(
             EstimatorConfig(num_frames=cfg.num_frames,
-                            obs_capacity=obs_cap, stereo=cfg.is_stereo,
-                            use_imu=cfg.use_imu,
+                            obs_capacity=obs_capacity(cfg),
+                            stereo=cfg.is_stereo,
+                            use_imu=cfg.use_imu, pipelined=cfg.pipelined,
                             max_iters=cfg.max_solver_iterations,
                             estimate_extrinsic=cfg.estimate_extrinsic,
                             estimate_td=cfg.estimate_td,
                             use_plane_constraint=cfg.use_plane_constraint,
                             dtype=dtype),
             p_bc, q_bc, device=self.device)
+        self.estimator.timer = self.timer
 
         os.makedirs(os.path.dirname(output_prefix) or ".", exist_ok=True)
         self.tum_writer = TumWriter(output_prefix + "_ego_tum.txt")
         self.frame_idx = 0
+        # pipelined frontend: frames dispatched to the tracker and not
+        # collected yet, at most `_fe_lag` after a call to process
+        self._fe_pending: List[tuple] = []
+        self._fe_lag = 2
 
     def process(self, fi: FrameInput):
-        """Track one frame, run the backend, write its pose."""
+        """Track one frame, run the backend, write its pose. Pipelined:
+        dispatch this frame's tracker step, then finish the oldest frame
+        in flight; returns that frame's output or None."""
         t = self.timer
+        if self.cfg.pipelined:
+            with t.stage("frontend"):
+                h = self.tracker.track_begin(fi.img_left, fi.timestamp,
+                                             img_right=fi.img_right)
+            out = None
+            if len(self._fe_pending) >= self._fe_lag:
+                out = self._finish_oldest_pending()
+            self._fe_pending.append((h, fi))
+            return out
         with t.stage("frontend"):
             feats = self.tracker.track(fi.img_left, fi.timestamp,
                                        img_right=fi.img_right)
@@ -123,16 +150,36 @@ class System:
         self.frame_idx += 1
         return out
 
+    def _finish_oldest_pending(self):
+        """Collect + finish the oldest frame in flight."""
+        h, fi = self._fe_pending.pop(0)
+        with self.timer.stage("frontend"):
+            feats = self.tracker.track_collect(h)
+        return self._finish_frame(fi, feats)
+
+    def drain(self):
+        """Finish every frame in flight, the frontend's and then the
+        pipelined estimator's; returns their outputs in order (also
+        written to the TUM file)."""
+        outs = []
+        while self._fe_pending:
+            out = self._finish_oldest_pending()
+            if out is not None:
+                outs.append(out)
+        for out in self.estimator.flush():
+            self.tum_writer.write(out.timestamp, out.p, out.q)
+            outs.append(out)
+        return outs
+
     def reset_timers(self):
-        """Fresh StageTimer shared by System + tracker (steady-state
-        stage means)."""
+        """Fresh StageTimer shared by System, tracker and estimator
+        (steady-state stage means)."""
         self.timer = StageTimer()
-        self.tracker.timer = self.timer
+        self.tracker.timer = self.estimator.timer = self.timer
         return self.timer
 
     def close(self):
-        """Flush, close the trajectory file, return the stage means."""
-        for out in self.estimator.flush():
-            self.tum_writer.write(out.timestamp, out.p, out.q)
+        """Drain, close the trajectory file, return the stage means."""
+        self.drain()
         self.tum_writer.close()
         return self.timer.summary()

@@ -14,10 +14,11 @@ camera rate (defaults: chip_smoke's).
 Prints one line per frame (features, position error) and, last, the
 ATE. The port runs on --device (default cpu) with its estimator in
 --dtype and its LK in --lk; the JAX System runs on the CPU in float64
-with its multi-dispatch estimator path (`use_megastep = False`) and its
-CPU LK (the Scharr/gather form), or, with --lk plain or cuda, the
-kernel's semantics: the Pallas level in interpret mode with the seeded
-level-0 back-check.
+with its CPU LK (the Scharr/gather form), or, with --lk plain or cuda,
+the kernel's semantics: the Pallas level in interpret mode with the
+seeded level-0 back-check. Both estimators take their default path,
+the steady state as one megastep a frame, or with --multi-dispatch the
+multi-dispatch path (`use_megastep = False`).
 RANSAC-F is each side's own (OpenCV on the JAX side, where installed),
 or off on both with --no-ransac-f. `--impl both` runs the two on the
 same frames and prints, per frame, where they part: the tracked slot
@@ -91,6 +92,7 @@ def run_torch(args):
     system = System(chip_smoke.slice_config(seq.rig, VioConfig()),
                     output_prefix=args.out + "_torch", device=dev,
                     dtype=dtype)
+    system.estimator.cfg.use_megastep = not args.multi_dispatch
     tc = system.tracker.cfg
     tc.use_ransac_f = not args.no_ransac_f
     system.tracker._tracker = lk.make_tracker(
@@ -164,7 +166,7 @@ def run_jax(args):
     if args.lk in ("plain", "cuda"):
         _use_pallas_interpret_lk()
     system = System(cfg, output_prefix=args.out + "_jax")
-    system.estimator.cfg.use_megastep = False
+    system.estimator.cfg.use_megastep = not args.multi_dispatch
     system.tracker.cfg.use_ransac_f = not args.no_ransac_f
     system.estimator.set_initial_pose(
         np.asarray(seq.gt_p[0]), np.asarray(seq.gt_q[0]),
@@ -240,6 +242,8 @@ def main():
                     default="auto")
     ap.add_argument("--no-ransac-f", action="store_true",
                     help="turn RANSAC-F off on both sides")
+    ap.add_argument("--multi-dispatch", action="store_true",
+                    help="both estimators on the multi-dispatch path")
     ap.add_argument("--out", default="output/scenario_ate")
     ap.add_argument("--lk-vs-truth", action="store_true",
                     help="only compare the two LK forms with the ground "
@@ -248,7 +252,8 @@ def main():
     if args.lk_vs_truth:
         return lk_vs_truth(args)
     tag = (f"sigma {args.sigma} landmarks {args.landmarks} "
-           f"{args.frame_hz} Hz ransac-f {not args.no_ransac_f}")
+           f"{args.frame_hz} Hz ransac-f {not args.no_ransac_f} megastep "
+           f"{not args.multi_dispatch}")
     runs = {}
     if args.impl in ("torch", "both"):
         runs["torch"] = run_torch(args)

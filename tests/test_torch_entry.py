@@ -45,7 +45,7 @@ def test_default_device_is_cuda(name, tmp_path):
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("field", ["pipelined", "use_line", "use_dense_flow",
+@pytest.mark.parametrize("field", ["use_line", "use_dense_flow",
                                    "use_loop_closure", "det2d_online"])
 def test_unported_system_switches_raise(field, tmp_path):
     cfg = VioConfig()
@@ -62,8 +62,7 @@ def test_unported_modes_raise(mode, tmp_path):
         System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(use_megastep=True),
-                                dict(pipelined=True), dict(use_line=True),
+@pytest.mark.parametrize("kw", [dict(use_line=True),
                                 dict(dynamic=True),
                                 dict(calibrate_extrinsic_rotation=True),
                                 dict(stereo=False)])

@@ -1,0 +1,165 @@
+"""The steady-state steps as CUDA graph chains (utils/step_graph.py).
+
+On the CPU: the steps run eagerly through StepGraph, leave their inputs
+as they were, and issue no operation that would synchronize with the
+host (which stream capture refuses) outside the `host_synced` calls;
+a dispatch mode stands in for the capture and counts the segments.
+
+On the card (`gpu` marker; skips without one): a replay of each
+branch's chain equals the eager step on the same inputs (masks
+identical, positions within 1e-6 m, float64), for the sequential and
+the pipelined step, and every steady frame was one replay. This file
+imports no JAX, so the card's machine runs it as
+
+    python -m pytest tests/test_torch_step_graph.py -m gpu --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+
+from dynamic_vins_tpu_torch.estimator import step_check
+from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                        EstimatorConfig)
+from dynamic_vins_tpu_torch.sim import frontend_sim, synthetic as sim
+from dynamic_vins_tpu_torch.utils import step_graph
+
+torch.set_num_threads(1)   # the xdist workers share the cores
+
+FRAMES = 9
+POS_ATOL = 1e-6       # m
+# aten ops that read a device value on the host or copy host data in
+SYNC_OPS = {"aten::_local_scalar_dense", "aten::nonzero",
+            "aten::_linalg_check_errors", "aten::masked_select",
+            "aten::lift_fresh", "aten::repeat_interleave",
+            "aten::_linalg_eigh", "aten::_linalg_svd"}
+
+
+def _run(device, pipelined=False, record=False):
+    """A window-5 stereo+IMU estimator over FRAMES frames, 4 of them
+    steady: (estimator, its step graph, outputs, the step function and,
+    with `record`, the inputs of each steady frame's step)."""
+    seq = sim.generate_sequence(num_frames=FRAMES, imu_hz=200.0,
+                                num_landmarks=150, seed=2)
+    frames = frontend_sim.make_frames(seq, max_feats=80, pixel_noise=0.4)
+    pr, qr = seq.rig.right_extrinsics()
+    p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
+    q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
+    est = Estimator(EstimatorConfig(num_frames=5, lm_capacity=160,
+                                    obs_capacity=1024, pipelined=pipelined),
+                    p_bc, q_bc, device=device)
+    est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                         sim.state_at(seq.frame_times[0])[2].numpy())
+    graph = est._pipe if pipelined else est._mega
+    fn, calls = graph.fn, []
+    if record:
+        def recorded(key, inputs):
+            calls.append((key, pytree.tree_map(torch.clone, inputs)))
+            return fn(key, inputs)
+
+        graph.fn = recorded
+    outs = [est.process_frame(f, imu) for f, imu in frames]
+    outs = [o for o in outs if o is not None] + est.flush()
+    assert est.initialized and not est.failed
+    return est, graph, outs, fn, calls
+
+
+class _SyncProbe(TorchDispatchMode):
+    """Records aten ops that would synchronize with the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        bool_index = name in ("aten::index", "aten::index_put_") and any(
+            isinstance(t, torch.Tensor) and t.dtype == torch.bool
+            for t in (args[1] if len(args) > 1 else ()) if t is not None)
+        if name in SYNC_OPS or bool_index:
+            self.seen.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+class _FakeChain:
+    """Stands in for a capture: counts the host-synced calls (segment
+    boundaries) and runs them outside the probe."""
+
+    def __init__(self):
+        self.calls = []
+
+    def split(self, fn, args):
+        self.calls.append(fn.__name__)
+        with _disable_current_modes():
+            return tuple(fn(*args))
+
+
+@pytest.fixture(scope="module")
+def cpu_runs():
+    return {p: _run("cpu", pipelined=p, record=True) for p in (False, True)}
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("keyframe", [True, False])
+def test_step_is_capturable(cpu_runs, pipelined, keyframe):
+    """No host synchronization in either branch of either step but at
+    its 3 host-synced calls (the triangulation's batched SVD and the
+    marginalization's two eighs), and the inputs stay untouched."""
+    _, _, _, step, calls = cpu_runs[pipelined]
+    assert len(calls) == FRAMES - 5
+    _, inputs = calls[-1]
+    before = pytree.tree_map(torch.clone, inputs)
+    probe, chain = _SyncProbe(), _FakeChain()
+    token = step_graph._CAPTURE.set(chain)
+    try:
+        with probe:
+            step(keyframe, inputs)
+    finally:
+        step_graph._CAPTURE.reset(token)
+    assert probe.seen == []
+    assert chain.calls == ["linalg_svd", "linalg_eigh", "linalg_eigh"]
+    for a, b in zip(pytree.tree_leaves(before), pytree.tree_leaves(inputs)):
+        assert torch.equal(a, b)
+
+
+def test_step_graph_runs_eagerly_on_the_cpu():
+    seen = []
+
+    def fn(key, inputs):
+        seen.append(key)
+        a, b = inputs
+        w, V = step_graph.host_synced(torch.linalg.eigh, a @ a.T)
+        return (V * w) @ V.T + b
+
+    g = step_graph.StepGraph(fn, "cpu", keys=("x", "y"))
+    a = torch.randn(4, 4, dtype=torch.float64)
+    out = g("x", (a, torch.ones(4, 4, dtype=torch.float64)))
+    torch.testing.assert_close(out, a @ a.T + 1.0)
+    assert seen == ["x"] and not g.on_card and g.chains == {}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: CUDA graphs have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_replay_equals_eager_step(cuda_device, pipelined):
+    est, graph, outs, _, _ = _run(cuda_device, pipelined=pipelined)
+    assert sum(graph.replays.values()) == FRAMES - 5
+    assert len(outs) == FRAMES
+    assert all(np.isfinite(o.p).all() for o in outs)
+    for key in (True, False):
+        assert graph.segments(key) == 4 and graph.host_syncs(key) == 3
+        eager = graph.fn(key, graph.inputs)
+        replay = graph.replay(key)
+        agree = step_check.agreement(est._consts, eager, replay)
+        assert agree["masks_equal"], (key, agree)
+        assert agree["pos_m"] <= POS_ATOL, (key, agree)
+        assert agree["prior_rel"] <= 1e-6, (key, agree)
