@@ -11,8 +11,11 @@ Phases (any failure exits non-zero before the result lines):
      752x480 pair (N=150, features near the borders, guesses that hit
      the window clamp), the track kernel on the slice's temporal pair
      (frames 10 -> 11) and stereo pair (frame 11 left -> right) with the
-     same border tail; then CUDA-event timings of kernel, wrapper and
-     plain version, and each kernel's bound.
+     same border tail, and the track kernel at radius 8 on the instance
+     tracker's input (the dynamic scene's frames 10 -> 11, K*N = 400
+     rows, a third of them valid: corners inside the eroded object
+     masks; 3 levels, fb 1.0 px, border 3); then CUDA-event timings of
+     kernel, wrapper and plain version, and each kernel's bound.
   4. slice: the RAW stereo+IMU System on 30 rendered 752x480 frames
      (seed 0, 20 Hz camera, 200 Hz IMU with noise, 300 landmarks,
      VioConfig defaults, estimator in float32; landmark blobs of sigma
@@ -40,6 +43,22 @@ Phases (any failure exits non-zero before the result lines):
   7. multi-dispatch: the slice's first 15 frames on the multi-dispatch
      estimator path (`use_megastep = False`): the same launch count and
      gate, and no replay.
+  8. naive: the slice's first 15 frames in NAIVE mode with a fixed
+     rectangular `dynamic_mask`: no tracked point inside it, the same
+     launch counts and gate.
+  9. dynamic: the DYNAMIC System (VioConfig defaults with slam=dynamic:
+     window 10, max_cnt 150, 50 features an instance, 8 instance slots,
+     32 landmarks and 512 observations an object) on 30 frames of the
+     slice's scene with 3 moving textured boxes (the port's
+     sim/dynamic_scene: instance masks, disparity, 3D boxes). Gates: the
+     radius-8 track kernel launched twice on every frame with instances
+     (temporal and stereo) and the radius-10 one twice a frame, no
+     level launch and no plain LK; one megastep replay every steady
+     frame and at most one object-solve replay a frame; ego ATE < 0.25
+     m and an instance within 2.0 m of an object's truth (the gates of
+     tests/test_dynamic_rendered.py); a non-empty KITTI-MOT file. Prints
+     ms/frame, stage means, peak memory, and the object solve eager
+     against its replay.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -78,6 +97,10 @@ PIPE_POS_ATOL_M = 2e-2     # pipelined against sequential
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 LK_TPU_KERNEL = "dynamic_vins_tpu/ops/lk_pallas.py:133"
+N_OBJECTS = 3
+NAIVE_FRAMES = 15          # the NAIVE phase's depth
+DYN_ATE_GATE_M = 0.25      # tests/test_dynamic_rendered.py:95
+DYN_OBJ_GATE_M = 2.0       # tests/test_dynamic_rendered.py:113
 
 
 def fail(msg: str):
@@ -212,23 +235,24 @@ def lk_bound_ms(nbytes, n, radius, iters):
     return 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
 
 
-def track_bound(pyr0, pyr1, pts, valid, fb_levels):
+def track_bound(pyr0, pyr1, pts, valid, fb_levels, radius=10, iters=10):
     """(bound ms, bound_by) of one track: the sum of the bounds of its
     level launches, each from lk_bytes / lk_bound_ms at the points and
-    guesses the plain track gives that level."""
+    guesses the plain track gives that level (every row: the kernel
+    tracks the invalid rows too)."""
     from dynamic_vins_tpu_torch.ops import lk_level as K
 
     calls = []
 
     def level(a, b, p, g):
         calls.append((a, b, p.contiguous(), g))
-        return K.lk_level_plain(a, b, p.contiguous(), g)
+        return K.lk_level_plain(a, b, p.contiguous(), g, radius, iters)
 
     K.pyramid_track(pyr0, pyr1, pts, valid, level, fb_levels=fb_levels)
     part = {"bytes": 0.0, "operations": 0.0}
     for a, b, p, g in calls:
-        t_bytes, t_ops = lk_bound_ms(lk_bytes(a, b, p, g, 10, 10),
-                                     p.shape[0], 10, 10)
+        t_bytes, t_ops = lk_bound_ms(lk_bytes(a, b, p, g, radius, iters),
+                                     p.shape[0], radius, iters)
         part["bytes" if t_bytes >= t_ops else "operations"] += max(
             t_bytes, t_ops)
     return sum(part.values()), max(part, key=part.get)
@@ -273,8 +297,8 @@ def level_kernel_phase(torch, dev, imgs, rng):
                  f"{err} px > {FLOW_ATOL_PX} px")
         max_err = max(max_err, err)
         flow, ok = torch.empty_like(g), torch.empty_like(okk)
-        ms = _timed(torch, lambda: K.launch_level(a, b, p, g, 10, flow, ok),
-                    200)
+        ms = _timed(torch, lambda: K.launch_level(a, b, p, g, 10, 10, flow,
+                                                  ok), 200)
         wrap_ms = _timed(torch, lambda: K.lk_level(a, b, p, g), 200)
         plain_ms = _timed(torch, lambda: K.lk_level_plain(a, b, p, g), 100)
         nbytes = lk_bytes(a, b, p, g, 10, 10)
@@ -339,7 +363,7 @@ def track_kernel_phase(torch, dev, imgs, rng):
         max_err = max(max_err, err)
         pts1, ok = torch.empty_like(kern[0]), torch.empty_like(kern[1])
         ms = _timed(torch, lambda: K.launch_track(
-            *args, tc.iters, thr, border, 1, pts1, ok), 200)
+            *args, tc.radius, tc.iters, thr, border, 1, pts1, ok), 200)
         wrap_ms = _timed(torch, lambda: K.lk_track(*args, **kw), 200)
         plain_ms = _timed(torch, lambda: K.lk_track_plain(*args, **kw), 20)
         bound, by = track_bound(*args, 1)
@@ -354,12 +378,84 @@ def track_kernel_phase(torch, dev, imgs, rng):
                 bound_by=max(set(by), key=by.count), max_abs_err=max_err)
 
 
-def kernel_phase(torch, dev, imgs):
+def instance_kernel_phase(torch, dev, dframes, rng):
+    """lk_track at radius 8 against its plain version on the instance
+    tracker's track: the dynamic scene's frames 10 -> 11, K*N rows of
+    which a third are valid (corners inside the merged eroded object
+    masks, as the instance tracker tops up), the rest stale positions
+    with a border tail; timings and the bound."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.frontend import corners, pyramid
+    from dynamic_vins_tpu_torch.frontend.instance_tracker import (
+        InstanceTrackerConfig, _erode3_np)
+    from dynamic_vins_tpu_torch.ops import lk_check as C
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    ic = InstanceTrackerConfig()     # the main path's LK settings
+    n = ic.max_instances * ic.max_dynamic_cnt
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    df0, df1 = dframes[10], dframes[11]
+    img0, img1 = f32(df0.img_left), f32(df1.img_left)
+    H, W = img0.shape
+    allow = np.zeros((H, W), bool)
+    for m in df0.seg.masks:
+        allow |= _erode3_np(m, ic.erode_iters)
+    cpts, _, found = corners.detect(
+        img0, max_corners=n // 3, min_dist=VioConfig().min_dynamic_dist,
+        border=2, allow_mask=torch.tensor(allow, device=dev))
+    nf = int(found.sum())
+    pts = rng.uniform([20, 20], [W - 20, H - 20], size=(n, 2))
+    pts[:nf] = cpts[:nf].cpu().numpy()
+    pts = C.with_border_tail(pts, n - 20, H, W, rng)
+    valid = np.zeros(n, bool)
+    valid[:nf] = True
+    valid[n - 20:] = True
+    perm = rng.permutation(n)        # valid rows spread over the rows
+    pts, valid = f32(pts[perm]), torch.tensor(valid[perm], device=dev)
+    pyr0 = pyramid.build_pyramid(img0, ic.levels)
+    pyr1 = pyramid.build_pyramid(img1, ic.levels)
+    args = (pyr0, pyr1, pts, valid)
+    kw = dict(radius=ic.radius, iters=ic.iters, fb_thresh=ic.fb_thresh,
+              border=3, fb_levels=1)
+    before = K.track_launches_by_radius[ic.radius]
+    kern = K.lk_track(*args, **kw)
+    torch.cuda.synchronize()
+    if K.track_launches_by_radius[ic.radius] != before + 1:
+        fail("lk_track at radius 8 did not count exactly one launch")
+    plain = K.lk_track_plain(*args, **kw)
+    near = C.near_threshold(*args, plain[0], ic.fb_thresh, 3, 1,
+                            radius=ic.radius)
+    err, bad, exempt = C.compare_track(kern, plain, near)
+    print(f"lk_track radius 8, instance rows {W}x{H} N={n} ({nf + 20} "
+          f"valid), {ic.levels} levels: max |pts1 err| {err:.2e} px, ok "
+          f"differs on {bad} features, and on {exempt} within {C.NEAR_PX} "
+          f"px of a threshold (expected 0)", flush=True)
+    if bad or not err <= FLOW_ATOL_PX:
+        fail(f"lk_track at radius 8 differs from plain: pts1 {err} px, ok "
+             f"on {bad} features")
+    pts1, ok = torch.empty_like(kern[0]), torch.empty_like(kern[1])
+    ms = _timed(torch, lambda: K.launch_track(
+        *args, ic.radius, ic.iters, ic.fb_thresh, 3, 1, pts1, ok), 200)
+    wrap_ms = _timed(torch, lambda: K.lk_track(*args, **kw), 200)
+    plain_ms = _timed(torch, lambda: K.lk_track_plain(*args, **kw), 20)
+    bound, by = track_bound(*args, 1, radius=ic.radius, iters=ic.iters)
+    print(f"lk_track radius 8 N={n}: kernel {ms} ms, wrapper {wrap_ms} ms, "
+          f"plain {plain_ms} ms, bound {bound} ms ({by}; sum of its "
+          f"{ic.levels + 1} levels), ok {int(plain[1].sum())}/{nf + 20}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+def kernel_phase(torch, dev, imgs, dframes):
     import numpy as np
 
     rng = np.random.default_rng(SEED)
     return (level_kernel_phase(torch, dev, imgs, rng),
-            track_kernel_phase(torch, dev, imgs, rng))
+            track_kernel_phase(torch, dev, imgs, rng),
+            instance_kernel_phase(torch, dev, dframes, rng))
 
 
 def slice_config(rig, cfg):
@@ -382,31 +478,44 @@ def slice_config(rig, cfg):
     return cfg
 
 
+def reset_counts(K, graphs):
+    """Every kernel and replay count to 0 (just before a path runs)."""
+    K.launches = K.track_launches = K.plain_levels = 0
+    for r in K.track_launches_by_radius:
+        K.track_launches_by_radius[r] = 0
+    for g in graphs:
+        g.replays.clear()
+
+
 def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
-              use_megastep=True, pipelined=False):
+              use_megastep=True, pipelined=False, dynamic_mask=None):
     """Drive the System over the slice's first `frames` (all) frames on one
-    path. Counts (kernel launches, step replays) are set to 0 just before
-    the frames and read just after. Fails on a count, a feature drought,
-    a non-finite output or the ATE gate; returns the launch counts, the
-    positions and the step graph."""
+    path (NAIVE with `dynamic_mask`). Counts (kernel launches, step
+    replays) are set to 0 just before the frames and read just after.
+    Fails on a count, a feature drought, a non-finite output, the ATE
+    gate or (NAIVE) a tracked point inside the mask; returns the launch
+    counts, the positions and the step graph."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.ops import lk_level as K
     from dynamic_vins_tpu_torch.sim import frontend_sim
     from dynamic_vins_tpu_torch.sim import synthetic as sim
     from dynamic_vins_tpu_torch.system import FrameInput, System
-    from dynamic_vins_tpu_torch.utils.config import VioConfig
+    from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
 
     frames = frames or FRAMES
     rig = seq.rig
     cfg = slice_config(rig, VioConfig())
     cfg.pipelined = pipelined
+    if dynamic_mask is not None:
+        cfg.slam = SlamMode.NAIVE
     system = System(cfg, output_prefix=str(REPO / "output" /
                                            f"chip_smoke_{name}"),
                     device=dev, dtype=torch.float32)
     est = system.estimator
     est.cfg.use_megastep = use_megastep
-    print(f"{name}: {rig.width}x{rig.height} stereo+IMU RAW, blob sigma "
+    print(f"{name}: {rig.width}x{rig.height} stereo+IMU "
+          f"{cfg.slam.value.upper()}, blob sigma "
           f"{BLOB_SIGMA_PX} px, window {cfg.window_size}, max_cnt "
           f"{cfg.max_cnt}, estimator dtype {est.dtype}, lm_capacity "
           f"{est.cfg.lm_capacity}, obs_capacity {est.cfg.obs_capacity}, "
@@ -420,10 +529,10 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     steady_calls = []
     process_frame = est.process_frame
 
-    def counted(frame, imu=None):
+    def counted(frame, imu=None, instances=None):
         steady_calls.append(est.initialized
                             and est.frame_count == est.cfg.num_frames - 1)
-        return process_frame(frame, imu)
+        return process_frame(frame, imu, instances=instances)
 
     est.process_frame = counted
     steady_from = min(STEADY_FROM, frames - 4)
@@ -432,9 +541,7 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    K.launches = 0
-    K.track_launches = 0
-    graph.replays.clear()
+    reset_counts(K, [graph])
     outs, frame_ms = [], []
     for k in range(frames):
         if k == steady_from:
@@ -444,9 +551,16 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
         t0 = time.perf_counter()
         out = system.process(FrameInput(float(seq.frame_times[k]),
                                         imgs[k][0], imgs[k][1],
-                                        imu=imus[k]))
+                                        imu=imus[k],
+                                        dynamic_mask=dynamic_mask))
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         nfeat = int(system.tracker.valid.sum())
+        if dynamic_mask is not None:
+            xy = system.tracker.pts[system.tracker.valid].astype(int)
+            inside = int(dynamic_mask[xy[:, 1], xy[:, 0]].sum())
+            if inside:
+                fail(f"{name}, frame {k}: {inside} tracked points inside "
+                     f"the dynamic mask")
         if out is not None:
             outs.append(out)
         if k > 2 and nfeat < 30:
@@ -455,15 +569,16 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     torch.cuda.synchronize()
     steady_ms = 1e3 * (time.perf_counter() - t_steady) / (frames
                                                          - steady_from)
-    launches = dict(lk_level=K.launches, lk_track=K.track_launches)
+    launches = dict(lk_level=K.launches, lk_track=K.track_launches,
+                    plain_levels=K.plain_levels)
     replays = sum(graph.replays.values())
     steady = sum(steady_calls)
     stages = system.close()
     peak = torch.cuda.max_memory_allocated() / 2**20
-    if launches != dict(lk_level=0, lk_track=2 * frames):
+    if launches != dict(lk_level=0, lk_track=2 * frames, plain_levels=0):
         fail(f"{name}: LK kernel launches {launches}, expected lk_track "
-             f"{2 * frames} (one a track, two a frame) and no per-level "
-             f"lk_level launch")
+             f"{2 * frames} (one a track, two a frame), no per-level "
+             f"lk_level launch and no plain level")
     want = steady if use_megastep else 0
     if replays != want:
         fail(f"{name}: {replays} step replays for {steady} steady frames "
@@ -496,6 +611,146 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     if not ate < ATE_GATE_M:
         fail(f"{name}: ATE {ate} m >= {ATE_GATE_M} m")
     return dict(launches=launches, p=p, graph=graph)
+
+
+def make_dynamic(torch, dev, seq, sigma=BLOB_SIGMA_PX):
+    """The slice's scene with N_OBJECTS moving textured boxes and their
+    perception artifacts (the port's sim/dynamic_scene)."""
+    from dynamic_vins_tpu_torch.sim import dynamic_scene
+
+    return dynamic_scene.make_dynamic_scene(
+        seq, num_objects=N_OBJECTS, seed=SEED, sigma=sigma, device=dev)
+
+
+def run_dynamic(torch, dev, seq, dframes, objs, imus):
+    """The DYNAMIC System over the dynamic scene's frames on its default
+    path; counts set to 0 just before the frames and read just after.
+    Fails on a count or a gate (module docstring, phase 9); returns the
+    kernel launches and the object solve's step graph."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io.writers import read_mot
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+    from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
+
+    name = "dynamic"
+    cfg = slice_config(seq.rig, VioConfig())
+    cfg.slam = SlamMode.DYNAMIC
+    prefix = REPO / "output" / "chip_smoke_dynamic"
+    system = System(cfg, output_prefix=str(prefix), device=dev,
+                    dtype=torch.float32)
+    est, it = system.estimator, system.inst_tracker
+    solve = est.im.solve_graph
+    print(f"{name}: {seq.rig.width}x{seq.rig.height} stereo+IMU DYNAMIC, "
+          f"{N_OBJECTS} objects, window {cfg.window_size}, max_cnt "
+          f"{cfg.max_cnt}, instance rows {it.cfg.max_instances} x "
+          f"{it.cfg.max_dynamic_cnt} (LK radius {it.cfg.radius}, "
+          f"{it.cfg.levels} levels, backend {it._tracker.backend}), object "
+          f"slots {est.im.cfg.max_objects} x {est.im.cfg.lm_per_object} "
+          f"landmarks x {est.im.cfg.obs_per_object} obs, estimator dtype "
+          f"{est.dtype}, {FRAMES} frames", flush=True)
+    est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                         sim.state_at(seq.frame_times[0])[2].numpy())
+    steady_calls = []
+    process_frame = est.process_frame
+
+    def counted(frame, imu=None, instances=None):
+        steady_calls.append(est.initialized
+                            and est.frame_count == est.cfg.num_frames - 1)
+        return process_frame(frame, imu, instances=instances)
+
+    est.process_frame = counted
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, [est._mega, solve])
+    outs, solves_a_frame, frame_ms = [], [], []
+    inst_frames = 0
+    for k, df in enumerate(dframes):
+        if k == STEADY_FROM:
+            torch.cuda.synchronize()
+            system.reset_timers()
+            t_steady = time.perf_counter()
+        before = sum(solve.replays.values())
+        t0 = time.perf_counter()
+        out = system.process(FrameInput(
+            float(seq.frame_times[k]), df.img_left, df.img_right,
+            imu=imus[k], seg=df.seg, boxes3d=df.boxes3d,
+            disparity=df.disparity))
+        frame_ms.append(1e3 * (time.perf_counter() - t0))
+        solves_a_frame.append(sum(solve.replays.values()) - before)
+        inst_frames += bool(len(df.seg.masks))
+        outs.append(out)
+        if k > 2 and int(system.tracker.valid.sum()) < 30:
+            fail(f"{name}, frame {k}: only "
+                 f"{int(system.tracker.valid.sum())} features")
+    inst = est.get_instance_states()
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t_steady) / (FRAMES
+                                                         - STEADY_FROM)
+    launches = dict(lk_level=K.launches, plain_levels=K.plain_levels,
+                    **{f"lk_track_r{r}": n for r, n
+                       in K.track_launches_by_radius.items()})
+    replays = sum(est._mega.replays.values())
+    steady = sum(steady_calls)
+    stages = system.close()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = dict(lk_level=0, plain_levels=0, lk_track_r8=2 * inst_frames,
+                lk_track_r10=2 * FRAMES)
+    print(f"{name}: kernel launches {json.dumps(launches)} ({inst_frames} "
+          f"frames with instances), megastep replays {replays} for {steady} "
+          f"steady frames, object-solve replays a frame "
+          f"{json.dumps(solves_a_frame)} (segments "
+          f"{solve.segments(0) if solve.chains else 0}, host syncs "
+          f"{solve.host_syncs(0) if solve.chains else 0})", flush=True)
+    if launches != want:
+        fail(f"{name}: LK launches {launches}, expected {want}")
+    if replays != steady or max(solves_a_frame) > 1 \
+            or sum(solves_a_frame) == 0:
+        fail(f"{name}: {replays} megastep replays for {steady} steady "
+             f"frames, object-solve replays a frame {solves_a_frame}")
+    if any(o is None for o in outs) or est.failed or not all(
+            np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
+            for o in outs):
+        fail(f"{name}: missing or non-finite output, or estimator failure")
+    p = np.stack([o.p for o in outs])
+    ate = frontend_sim.ate_rmse(p, seq.gt_p.numpy())
+    errs = {tid: min(float(np.linalg.norm(o.gt_p[-1] - s["p"]))
+                     for o in objs) for tid, s in inst.items()}
+    rows = read_mot(str(prefix) + "_mot.txt")
+    print(f"{name}: ego ATE {ate:.4f} m (gate {DYN_ATE_GATE_M} m), instance"
+          f" errors to the nearest object's truth (m) {json.dumps(errs)} "
+          f"(gate: one below {DYN_OBJ_GATE_M} m), {len(rows)} MOT rows, "
+          f"track ids {sorted({r['tid'] for r in rows})}", flush=True)
+    print(f"{name}: steady ms/frame (frames {STEADY_FROM}-{FRAMES - 1}, one "
+          f"synchronize at the end) {steady_ms:.2f}, peak device memory "
+          f"{peak:.1f} MiB", flush=True)
+    print(f"{name}: stage means (ms, steady frames):", json.dumps(stages),
+          flush=True)
+    print(f"{name}: host ms per call:",
+          json.dumps([round(t, 2) for t in frame_ms]), flush=True)
+    if not ate < DYN_ATE_GATE_M:
+        fail(f"{name}: ego ATE {ate} m >= {DYN_ATE_GATE_M} m")
+    if not errs or not min(errs.values()) < DYN_OBJ_GATE_M:
+        fail(f"{name}: no instance within {DYN_OBJ_GATE_M} m of an "
+             f"object's truth: {errs}")
+    if not rows:
+        fail(f"{name}: the KITTI-MOT file is empty")
+    return dict(launches=launches, solve=solve)
+
+
+def solve_times(torch, graph):
+    """CUDA-event ms of the object solve eager and of one replay, on the
+    graph's last inputs, and the largest difference between the two."""
+    eager = graph.fn(0, graph.inputs)
+    replay = graph.replay(0).clone()
+    return dict(eager_ms=_timed(torch, lambda: graph.fn(0, graph.inputs), 3),
+                replay_ms=_timed(torch, lambda: graph.replay(0), 20),
+                max_abs_diff=float((eager - replay).abs().max()))
 
 
 def device_busy(torch, fn):
@@ -634,10 +889,12 @@ def main():
     build_phase()
     t0 = time.perf_counter()
     seq, imgs, imus = make_scene(torch, dev)
-    print(f"rendered {FRAMES} stereo frames in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    timed = dict(zip(("lk_level", "lk_track"),
-                     kernel_phase(torch, dev, imgs)))
+    dframes, objs = make_dynamic(torch, dev, seq)
+    print(f"rendered {FRAMES} stereo frames, and again with "
+          f"{N_OBJECTS} objects ({[len(d.seg.masks) for d in dframes]} "
+          f"masks a frame), in {time.perf_counter() - t0:.1f} s", flush=True)
+    timed = dict(zip(("lk_level", "lk_track", "lk_track_r8"),
+                     kernel_phase(torch, dev, imgs, dframes)))
     seqr = run_slice(torch, dev, seq, imgs, imus, "slice")
     print("slice: megastep eager vs replay (ms, float32, CUDA events):",
           json.dumps(step_times(torch, seqr.pop("graph"))), flush=True)
@@ -650,7 +907,18 @@ def main():
           flush=True)
     run_slice(torch, dev, seq, imgs, imus, "multi-dispatch",
               frames=MULTI_FRAMES, use_megastep=False)
-    launches = seqr["launches"]
+    import numpy as np
+
+    mask = np.zeros((seq.rig.height, seq.rig.width), bool)
+    mask[120:360, 250:500] = True    # a fixed "dynamic" rectangle
+    run_slice(torch, dev, seq, imgs, imus, "naive", frames=NAIVE_FRAMES,
+              dynamic_mask=mask)
+    dyn = run_dynamic(torch, dev, seq, dframes, objs, imus)
+    print("dynamic: object solve eager vs replay (ms, float32, CUDA "
+          "events):", json.dumps(solve_times(torch, dyn["solve"])),
+          flush=True)
+    launches = dict(seqr["launches"],
+                    lk_track_r8=dyn["launches"]["lk_track_r8"])
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda",
         source="dynamic_vins_tpu_torch/csrc/lk_level.cu",

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dynamic_vins_tpu_torch.factors.object_factors import ObjectWindow
 from dynamic_vins_tpu_torch.factors.prior import MarginalPrior
 from dynamic_vins_tpu_torch.factors.projection import ProjObs
 from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
@@ -19,6 +20,7 @@ from dynamic_vins_tpu_torch.imu.preintegration import (ImuNoise,
                                                        Preintegration)
 from dynamic_vins_tpu_torch.solver.gauss_newton import BAProblem
 from dynamic_vins_tpu_torch.solver.layout import WindowState
+from dynamic_vins_tpu_torch.solver.object_solver import ObjectProblem
 
 
 def _f(a, dtype, device):
@@ -79,3 +81,39 @@ def ba_problem(d, dtype=torch.float64, device="cpu") -> BAProblem:
                      prior=marginal_prior(d["prior"], dtype, device),
                      lm_valid=_x(d["lm_valid"], device),
                      fixed_cols=_x(d["fixed_cols"], device))
+
+
+def object_window(d, dtype=torch.float64, device="cpu") -> ObjectWindow:
+    """An object window (one object, or a leading object axis)."""
+    return _floats(ObjectWindow, d, dtype, device)
+
+
+def object_problem(d, dtype=torch.float64, device="cpu") -> ObjectProblem:
+    """An object problem: integer and bool fields keep their kind."""
+    return ObjectProblem(*(_x(d[k], device)
+                           if np.asarray(d[k]).dtype.kind in "iub"
+                           else _f(d[k], dtype, device)
+                           for k in ObjectProblem._fields))
+
+
+# the host state of an InstanceManager, as numpy arrays
+INSTANCE_STATE = ("active", "track_id", "cls", "age", "lost", "is_static",
+                  "static_cnt", "initialized", "p", "q", "v", "w", "dims",
+                  "c_off", "frame_valid", "lm", "lm_valid", "lm_feat_id",
+                  "obs", "obs_valid", "extra", "extra_valid", "dims_det",
+                  "dims_det_valid", "q_det", "det_valid", "gen")
+
+
+def load_instance_state(im, d):
+    """Set a port InstanceManager's host state from `d` (the
+    INSTANCE_STATE arrays and `tid_to_slot`, {track id: slot}); no
+    solve may be pending on either side."""
+    if im._pending:
+        raise ValueError("the instance manager has a pending solve")
+    for name in INSTANCE_STATE:
+        a = np.asarray(d[name])
+        if a.shape != getattr(im, name).shape:
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{getattr(im, name).shape}")
+        setattr(im, name, a.astype(getattr(im, name).dtype, copy=True))
+    im._tid_to_slot = {int(k): int(v) for k, v in d["tid_to_slot"].items()}

@@ -34,7 +34,8 @@
 //
 // This design:
 //   * one warp per feature, WARPS features per block; each lane owns
-//     ceil(P^2 / 32) = 14 patch pixels, and accumulates its float32
+//     ceil(P^2 / 32) patch pixels (14 at radius 10, 10 at radius 8),
+//     and accumulates its float32
 //     products in double; a 5-step __shfl_xor butterfly gives every lane
 //     the same sum (commutative pairwise adds), rounded once to float32,
 //     so the flow update is uniform and the loop needs no __syncthreads
@@ -56,6 +57,11 @@
 //     the final tests run in the warp, from the pyramids' level pointers
 //     passed by value.
 //
+// The patch radius is a template parameter: radius 10 for the background
+// tracker, radius 8 for the instance tracker (dynamic_vins_tpu/frontend/
+// instance_tracker.py runs the same Pallas kernel at radius 8, 3 levels).
+// Both are instantiated; the C entries take the radius and pick one.
+//
 // Built with --fmad=false: every float32 operation rounds as the plain
 // version's torch ops do.
 
@@ -64,15 +70,19 @@
 
 #define WIN_H 48
 #define WIN_W 256
-#define RADIUS 10
-#define P (2 * RADIUS + 1)
-#define PP (P * P)
-#define NPIX ((PP + 31) / 32)       // patch pixels per lane
-#define S0N (P + 5)                 // img0 taps: +-1 px shifts, +1 lerp, slack
 #define MARGIN 8
-#define S1N (P + 1 + 2 * MARGIN)    // img1 taps of the first patch + margin
 #define WARPS 4
 #define MAX_LEVELS 8
+
+// The patch geometry of radius R.
+template <int R>
+struct Geom {
+  static constexpr int P = 2 * R + 1;
+  static constexpr int PP = P * P;
+  static constexpr int NPIX = (PP + 31) / 32;     // patch pixels per lane
+  static constexpr int S0N = P + 5;     // img0 taps: +-1 px shifts, +1 lerp
+  static constexpr int S1N = P + 1 + 2 * MARGIN;  // img1 taps + margin
+};
 
 struct Level {
   const float* img;   // [H, W] float32, unpadded
@@ -119,7 +129,9 @@ __device__ __forceinline__ float bilerp(float v00, float v10, float v01,
 }
 
 // bilinear sample of patch pixel (p, q) at window-local top-left
-// (ly, lx) from the staged img0 taps at window-local origin (ry, rx)
+// (ly, lx) from the staged img0 taps (rows of S0N) at window-local
+// origin (ry, rx)
+template <int S0N>
 __device__ __forceinline__ float patch0(const float* s, int ry, int rx,
                                         float ly, float lx, int p, int q) {
   const float iyf = floorf(ly), ixf = floorf(lx);
@@ -149,18 +161,21 @@ __device__ __forceinline__ void warp_sum2(double& a, double& b) {
 // img0 at this level, (gu, gv) the flow guess; returns ok (det > 1e-6)
 // and, if ok, leaves the refined flow in (gu, gv), else leaves it as it
 // was (the glue's where(ok, g_level, g)). s0 / s1: the warp's staging
-// buffers.
+// buffers. R: the patch radius.
+template <int R>
 __device__ bool lk_level_warp(const Level& L0, const Level& L1, float x,
                               float y, float& gu, float& gv, int iters,
                               float* __restrict__ s0,
                               float* __restrict__ s1, int lane) {
+  constexpr int P = Geom<R>::P, PP = Geom<R>::PP, NPIX = Geom<R>::NPIX;
+  constexpr int S0N = Geom<R>::S0N, S1N = Geom<R>::S1N;
   const int Hp = max((L0.H + 7) / 8 * 8, WIN_H);
   const int Wp = max((L0.W + 127) / 128 * 128, WIN_W);
   int oy0, ox0, oy1, ox1;
   snap(y, x, Hp, Wp, oy0, ox0);
   snap(y + gv, x + gu, Hp, Wp, oy1, ox1);
-  const float tl_y = (y - (float)oy0) - (float)RADIUS;
-  const float tl_x = (x - (float)ox0) - (float)RADIUS;
+  const float tl_y = (y - (float)oy0) - (float)R;
+  const float tl_x = (x - (float)ox0) - (float)R;
 
   // every tap of the template and its +-1 px patches: rows and columns
   // floor(tl) - 1 .. floor(tl) + P + 2 (a +-1 shift moves the floor by
@@ -171,10 +186,10 @@ __device__ bool lk_level_warp(const Level& L0, const Level& L1, float x,
   // tap lies inside window 1: no zero fill on this side. Its region is
   // staged here, beside img0's, so that both loads are in flight at once
   const int ry1 = (int)floorf(fminf(fmaxf(((y + gv) - (float)oy1)
-                                         - (float)RADIUS, 0.0f), hi_y))
+                                         - (float)R, 0.0f), hi_y))
                   - MARGIN;
   const int rx1 = (int)floorf(fminf(fmaxf(((x + gu) - (float)ox1)
-                                         - (float)RADIUS, 0.0f), hi_x))
+                                         - (float)R, 0.0f), hi_x))
                   - MARGIN;
   // every load issued before any store (a latency chain otherwise)
   constexpr int N0 = (S0N * S0N + 31) / 32, N1 = (S1N * S1N + 31) / 32;
@@ -208,11 +223,11 @@ __device__ bool lk_level_warp(const Level& L0, const Level& L1, float x,
     tm[j] = gx[j] = gy[j] = 0.0f;
     if (k < PP) {
       const int p = k / P, q = k - (k / P) * P;
-      tm[j] = patch0(s0, ry0, rx0, tl_y, tl_x, p, q);
-      gx[j] = 0.5f * (patch0(s0, ry0, rx0, tl_y, tl_x + 1.0f, p, q)
-                      - patch0(s0, ry0, rx0, tl_y, tl_x - 1.0f, p, q));
-      gy[j] = 0.5f * (patch0(s0, ry0, rx0, tl_y + 1.0f, tl_x, p, q)
-                      - patch0(s0, ry0, rx0, tl_y - 1.0f, tl_x, p, q));
+      tm[j] = patch0<S0N>(s0, ry0, rx0, tl_y, tl_x, p, q);
+      gx[j] = 0.5f * (patch0<S0N>(s0, ry0, rx0, tl_y, tl_x + 1.0f, p, q)
+                      - patch0<S0N>(s0, ry0, rx0, tl_y, tl_x - 1.0f, p, q));
+      gy[j] = 0.5f * (patch0<S0N>(s0, ry0, rx0, tl_y + 1.0f, tl_x, p, q)
+                      - patch0<S0N>(s0, ry0, rx0, tl_y - 1.0f, tl_x, p, q));
       a11 += (double)(gx[j] * gx[j]);
       a12 += (double)(gx[j] * gy[j]);
       a22 += (double)(gy[j] * gy[j]);
@@ -226,8 +241,8 @@ __device__ bool lk_level_warp(const Level& L0, const Level& L1, float x,
 
   float u = gu, v = gv;
   for (int it = 0; it < iters; ++it) {
-    float ly = ((y + v) - (float)oy1) - (float)RADIUS;
-    float lx = ((x + u) - (float)ox1) - (float)RADIUS;
+    float ly = ((y + v) - (float)oy1) - (float)R;
+    float lx = ((x + u) - (float)ox1) - (float)R;
     ly = fminf(fmaxf(ly, 0.0f), hi_y);
     lx = fminf(fmaxf(lx, 0.0f), hi_x);
     const float iyf = floorf(ly), ixf = floorf(lx);
@@ -274,11 +289,13 @@ __device__ bool lk_level_warp(const Level& L0, const Level& L1, float x,
   return true;
 }
 
+template <int R>
 __global__ void __launch_bounds__(32 * WARPS)
 lk_track_kernel(LkPyramids pyr, const float* __restrict__ pts,
                 const uint8_t* __restrict__ valid, int n, int iters,
                 float fb_thresh, int border, int fb_levels,
                 float* __restrict__ pts1, uint8_t* __restrict__ ok_out) {
+  constexpr int S0N = Geom<R>::S0N, S1N = Geom<R>::S1N;
   __shared__ float s0_all[WARPS][S0N * S0N];
   __shared__ float s1_all[WARPS][S1N * S1N];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -299,8 +316,8 @@ lk_track_kernel(LkPyramids pyr, const float* __restrict__ pts,
       gu *= 2.0f;
       gv *= 2.0f;
     }
-    const bool okl = lk_level_warp(a, b, px / s, py / s, gu, gv, iters, s0,
-                                   s1, lane);
+    const bool okl = lk_level_warp<R>(a, b, px / s, py / s, gu, gv, iters,
+                                      s0, s1, lane);
     ok = ok && okl;
   }
   const float x1 = px + gu, y1 = py + gv;
@@ -320,8 +337,8 @@ lk_track_kernel(LkPyramids pyr, const float* __restrict__ pts,
       bu *= 2.0f;
       bv *= 2.0f;
     }
-    const bool okl = lk_level_warp(a, b, x1 / s, y1 / s, bu, bv, iters, s0,
-                                   s1, lane);
+    const bool okl = lk_level_warp<R>(a, b, x1 / s, y1 / s, bu, bv, iters,
+                                      s0, s1, lane);
     ok = ok && okl;
   }
   const float ex = (x1 + bu) - px, ey = (y1 + bv) - py;
@@ -336,19 +353,21 @@ lk_track_kernel(LkPyramids pyr, const float* __restrict__ pts,
   }
 }
 
+template <int R>
 __global__ void __launch_bounds__(32 * WARPS)
 lk_level_kernel(Level L0, Level L1, const float* __restrict__ pts,
                 const float* __restrict__ guess, int n, int iters,
                 float* __restrict__ flow, uint8_t* __restrict__ ok) {
+  constexpr int S0N = Geom<R>::S0N, S1N = Geom<R>::S1N;
   __shared__ float s0_all[WARPS][S0N * S0N];
   __shared__ float s1_all[WARPS][S1N * S1N];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS + warp;
   if (i >= n) return;
   float gu = guess[2 * i + 0], gv = guess[2 * i + 1];
-  const bool good = lk_level_warp(L0, L1, pts[2 * i + 0], pts[2 * i + 1],
-                                  gu, gv, iters, s0_all[warp], s1_all[warp],
-                                  lane);
+  const bool good = lk_level_warp<R>(L0, L1, pts[2 * i + 0],
+                                     pts[2 * i + 1], gu, gv, iters,
+                                     s0_all[warp], s1_all[warp], lane);
   if (lane == 0) {
     flow[2 * i + 0] = gu;
     flow[2 * i + 1] = gv;
@@ -358,34 +377,62 @@ lk_level_kernel(Level L0, Level L1, const float* __restrict__ pts,
 
 // C entry points: launch on `stream`, return cudaGetLastError(). Images
 // are unpadded [H, W] float32; pts, guess, flow, pts1: [n, 2] float32;
-// valid, ok: [n] bytes. The patch radius is RADIUS.
+// valid, ok: [n] bytes. radius: 8 or 10 (cudaErrorInvalidValue else).
+
+template <int R>
+static void launch_level(const Level& L0, const Level& L1, const float* pts,
+                         const float* guess, int n, int iters, float* flow,
+                         uint8_t* ok, cudaStream_t stream) {
+  const int blocks = (n + WARPS - 1) / WARPS;
+  lk_level_kernel<R><<<blocks, 32 * WARPS, 0, stream>>>(
+      L0, L1, pts, guess, n, iters, flow, ok);
+}
+
+template <int R>
+static void launch_track(const LkPyramids& pyr, const float* pts,
+                         const uint8_t* valid, int n, int iters,
+                         float fb_thresh, int border, int fb_levels,
+                         float* pts1, uint8_t* ok, cudaStream_t stream) {
+  const int blocks = (n + WARPS - 1) / WARPS;
+  lk_track_kernel<R><<<blocks, 32 * WARPS, 0, stream>>>(
+      pyr, pts, valid, n, iters, fb_thresh, border, fb_levels, pts1, ok);
+}
 
 // One level: flow [n,2] (the guess where not ok) and ok [n].
 extern "C" int lk_level_launch(const float* img0, const float* img1, int H,
                                int W, const float* pts, const float* guess,
-                               int n, int iters, float* flow, uint8_t* ok,
-                               void* stream) {
+                               int n, int radius, int iters, float* flow,
+                               uint8_t* ok, void* stream) {
+  if (radius != 8 && radius != 10) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const Level L0 = {img0, H, W}, L1 = {img1, H, W};
-  const int blocks = (n + WARPS - 1) / WARPS;
-  lk_level_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      L0, L1, pts, guess, n, iters, flow, ok);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (radius == 8)
+    launch_level<8>(L0, L1, pts, guess, n, iters, flow, ok, s);
+  else
+    launch_level<10>(L0, L1, pts, guess, n, iters, flow, ok, s);
   return (int)cudaGetLastError();
 }
 
 // A whole track from pyramid 0 to pyramid 1: pts1 [n,2] and ok [n].
 extern "C" int lk_track_launch(const LkPyramids* pyr, const float* pts,
-                               const uint8_t* valid, int n, int iters,
-                               float fb_thresh, int border, int fb_levels,
-                               float* pts1, uint8_t* ok, void* stream) {
+                               const uint8_t* valid, int n, int radius,
+                               int iters, float fb_thresh, int border,
+                               int fb_levels, float* pts1, uint8_t* ok,
+                               void* stream) {
+  if (radius != 8 && radius != 10) return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   if (pyr->levels < 1 || pyr->levels > MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < pyr->levels; ++l)
     if (pyr->H[l] < 1 || pyr->W[l] < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + WARPS - 1) / WARPS;
-  lk_track_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      *pyr, pts, valid, n, iters, fb_thresh, border, fb_levels, pts1, ok);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (radius == 8)
+    launch_track<8>(*pyr, pts, valid, n, iters, fb_thresh, border,
+                    fb_levels, pts1, ok, s);
+  else
+    launch_track<10>(*pyr, pts, valid, n, iters, fb_thresh, border,
+                     fb_levels, pts1, ok, s);
   return (int)cudaGetLastError();
 }

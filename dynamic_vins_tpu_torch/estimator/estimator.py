@@ -45,7 +45,6 @@ from dynamic_vins_tpu_torch.utils.step_graph import StepGraph
 _TODO = {
     "mesh": "queue 1 item 18 (multi-GPU)",
     "use_line": "queue 1 item 13 (LinePoint)",
-    "dynamic": "queue 1 item 15 (DYNAMIC)",
     "calibrate_extrinsic_rotation": "queue 1 item 12 (ex-rotation "
                                     "calibration)",
 }
@@ -591,6 +590,10 @@ class Estimator:
                 raise NotImplementedError(
                     f"EstimatorConfig.{name} is not ported yet: ROADMAP "
                     f"{item}")
+        if config.dynamic and config.pipelined:
+            raise NotImplementedError(
+                "pipelined DYNAMIC is not ported yet: ROADMAP queue 1 "
+                "item 15b (pipelined NAIVE/DYNAMIC)")
         if config.stereo is False and config.use_imu:
             raise NotImplementedError(
                 "mono+IMU initialization is not ported yet: ROADMAP "
@@ -657,6 +660,15 @@ class Estimator:
         self._pipe_tri_hist = deque(maxlen=2)
         # StageTimer for the steady state's stages (be.*), or None
         self.timer = None
+        # per-object backend (DYNAMIC), in the estimator's dtype
+        self.im = None
+        if config.dynamic:
+            from dynamic_vins_tpu_torch.estimator.instance_manager import (
+                InstanceConfig, InstanceManager)
+
+            self.im = InstanceManager(InstanceConfig(num_frames=F,
+                                                     dtype=self.dtype),
+                                      device=self.device)
 
     def _st(self, name: str):
         return self.timer.stage(name) if self.timer is not None \
@@ -731,9 +743,12 @@ class Estimator:
     # ------------------------------------------------------------------
     # frame processing
     # ------------------------------------------------------------------
-    def process_frame(self, frame: FrameFeatures,
-                      imu_interval=None) -> Optional[OdometryOut]:
-        """Ingest one frame (+ the IMU since the previous frame)."""
+    def process_frame(self, frame: FrameFeatures, imu_interval=None,
+                      instances=None) -> Optional[OdometryOut]:
+        """Ingest one frame (+ the IMU since the previous frame).
+
+        instances: the frame's per-object frontend output (DYNAMIC), in
+        the `InstanceManager.push_frame` format."""
         cfg = self.cfg
         F = cfg.num_frames
         k = self.frame_count
@@ -752,7 +767,7 @@ class Estimator:
         if cfg.use_megastep and self.initialized and k == F - 1:
             if cfg.pipelined:
                 return self._megastep_frame_pipelined(is_keyframe)
-            self._megastep_frame(is_keyframe)
+            self._megastep_frame(is_keyframe, instances=instances)
             out = self._output(k)
             self._slide(is_keyframe)
             return out
@@ -774,6 +789,8 @@ class Estimator:
             self._optimize()
             self._reject_outliers()
             self._check_failure()
+        if self.im is not None and instances is not None:
+            self._process_instances(k, instances)
 
         out = self._output(k)
         if k == F - 1:
@@ -792,6 +809,8 @@ class Estimator:
             o = self._pipe_drain_one()
             if o is not None:
                 outs.append(o)
+        if self.im is not None:
+            self.im._sync_pending()
         return outs
 
     # ------------------------------------------------------------------
@@ -805,10 +824,13 @@ class Estimator:
             return pytree.tree_map(torch.clone, tree)
         return tree
 
-    def _megastep_frame(self, is_keyframe: bool):
+    def _megastep_frame(self, is_keyframe: bool, instances=None):
         """Window full and initialized: pack the host tables into the
         step's two input buffers, run the step (one graph chain on the
-        card), fetch its output buffer, write back."""
+        card), fetch its output buffer, write back. In DYNAMIC mode the
+        per-object pipeline runs between the step and the fetch, against
+        the IMU-propagated pose of the newest frame (as the JAX package
+        does while its solve is in flight)."""
         cfg = self.cfg
         fm = self.fm
         F = cfg.num_frames
@@ -850,6 +872,9 @@ class Estimator:
             self._pres = self._own(pres2)
             prior_out = self._own(prior_out)
             self._mega_io.send(slot, out)
+        if instances is not None and self.im is not None:
+            self._process_instances(
+                k, instances, ego_override=self._propagate_pose_host(k))
         with self._st("be.fetch"):
             ob = self._mega_io.result(slot)
 
@@ -1260,6 +1285,13 @@ class Estimator:
             self._pres = set_edge(self._pres, e1,
                                   self._pres.map(lambda x: x[e1] * 0))
             self.fm.slide_new()
+        if self.im is not None:
+            # object per-frame data follows the ego window's move
+            # (Instance::SlideWindow / SlideWindowNew)
+            if old:
+                self.im.slide_window()
+            else:
+                self.im.slide_window_new()
         self.frame_count = F - 1
 
     def _reanchor_host(self, slots):
@@ -1278,6 +1310,102 @@ class Estimator:
                                         pw)[:, 2]
         with np.errstate(divide="ignore", invalid="ignore"):
             return np.where(d > 1e-3, 1.0 / d, np.nan)
+
+    # ------------------------------------------------------------------
+    # DYNAMIC: the per-object pipeline
+    # ------------------------------------------------------------------
+    def _propagate_pose_host(self, k):
+        """Predicted pose of slot k before its solve lands: host midpoint
+        IMU propagation of frame k-1's state across edge k-1."""
+        st = self.state
+        p, q, _v = self._propagate_edge_host(
+            st.p[k - 1], st.q[k - 1], st.v[k - 1], st.ba[k - 1],
+            st.bg[k - 1], k - 1)
+        return p, q
+
+    def _propagate_edge_host(self, p, q, v, ba, bg, e):
+        """Host midpoint IMU propagation across edge e's raw buffer.
+        Returns (p, q, v)."""
+        p = np.array(p, float)
+        q = np.array(q, float)
+        v = np.array(v, float)
+        n = int(self.imu_n[e])
+        if n <= 0 or not self.cfg.use_imu:
+            return p, q, v
+        ba = np.asarray(ba)
+        bg = np.asarray(bg)
+        acc, gyr, dts = self.imu_acc[e], self.imu_gyr[e], self.imu_dt[e]
+        g = np.array([0.0, 0.0, 9.81])
+        for i in range(n):
+            dt = float(dts[i])
+            if dt <= 0.0:
+                continue
+            un_acc0 = lie_np.quat_rotate(q, acc[i] - ba) - g
+            un_gyr = 0.5 * (gyr[i] + gyr[i + 1]) - bg
+            half = 0.5 * un_gyr * dt
+            n2 = float(half @ half)
+            dq = np.concatenate([[1.0], half])
+            if n2 > 1e-12:
+                theta = np.sqrt(n2)
+                dq = np.concatenate(
+                    [[np.cos(theta)], np.sin(theta) / theta * half])
+            q = lie_np.quat_multiply(q, dq)
+            q /= np.linalg.norm(q)
+            un_acc1 = lie_np.quat_rotate(q, acc[i + 1] - ba) - g
+            un_acc = 0.5 * (un_acc0 + un_acc1)
+            p = p + v * dt + 0.5 * un_acc * dt * dt
+            v = v + un_acc * dt
+        return p, q, v
+
+    def _process_instances(self, k, instances, ego_override=None):
+        """Per-object pipeline for frame k (estimator.cpp:1577-1622:
+        PushBack -> PropagatePose -> Triangulate -> InitialInstance ->
+        InitialInstanceVelocity -> SetDynamicOrStatic -> Optimization).
+
+        ego_override: (p, q) predicted pose of frame k while its ego
+        solve has not landed (the megastep); it also stands in for slot
+        k of the window poses the outlier test and the solve see."""
+        with self._st("be.inst"):
+            st = self.state
+            im = self.im
+            if ego_override is not None:
+                ego_p, ego_q = (np.asarray(ego_override[0]),
+                                np.asarray(ego_override[1]))
+            else:
+                ego_p = np.asarray(st.p[k])
+                ego_q = np.asarray(st.q[k])
+            p_bc0 = np.asarray(st.p_bc[0])
+            q_bc0 = np.asarray(st.q_bc[0])
+            im.push_frame(k, instances, ego_p, ego_q, p_bc0, q_bc0)
+            times = self.timestamps
+            im.propagate_pose(k, times)
+            im.initialize_instances(k)
+            im.triangulate(k, ego_p, ego_q, p_bc0, q_bc0,
+                           (np.asarray(st.p_bc[1]), np.asarray(st.q_bc[1])))
+            im.init_velocity(k, times)
+            im.classify_motion(k, times)
+            if self.initialized:
+                p_win = np.array(st.p)
+                q_win = np.array(st.q)
+                if ego_override is not None:
+                    p_win[k] = ego_p
+                    q_win[k] = ego_q
+                p_wc, q_wc = lie_np.pose_compose(
+                    p_win[:, None, :], q_win[:, None, :],
+                    np.asarray(st.p_bc)[None, :, :],
+                    np.asarray(st.q_bc)[None, :, :])
+                p_cw, q_cw = lie_np.pose_inverse(p_wc, q_wc)
+                # against the previous frame's solution, with the
+                # CURRENT window's camera poses
+                im.reject_outliers(p_cw=p_cw, q_cw=q_cw)
+                im.optimize(times, p_cw, q_cw)
+            im.manage()
+
+    def get_instance_states(self):
+        """Snapshot of the per-object states (GetOutputInstInfo), after
+        the dispatched object solve is applied (the JAX package's
+        `get_instance_states(sync=True)`)."""
+        return {} if self.im is None else self.im.output()
 
     # ------------------------------------------------------------------
     def _output(self, k) -> OdometryOut:

@@ -35,16 +35,19 @@ def shi_tomasi_response(img, block: int = 3):
 
 def detect(img, max_corners: int, min_dist: int = 16,
            quality: float = 0.01, exclude_pts=None, exclude_valid=None,
-           border: int = 8):
+           border: int = 8, allow_mask=None):
     """Detect up to max_corners corners.
 
     Returns (pts [K,2], score [K], found [K] bool), K = max_corners,
     found corners first in descending score (ties: lower cell first).
     exclude_pts [N,2] + exclude_valid [N]: corners within min_dist of
-    them are suppressed."""
+    them are suppressed. allow_mask [H,W] bool: candidates only where
+    True (the instance tracker's merged eroded masks)."""
     H, W = img.shape
     dev = img.device
     resp = shi_tomasi_response(img)
+    if allow_mask is not None:
+        resp = torch.where(allow_mask, resp, -1.0)
 
     neigh = nnf.max_pool2d(
         nnf.pad(resp[None, None], (1, 1, 1, 1), value=-1.0), 3,

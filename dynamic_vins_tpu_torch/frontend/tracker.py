@@ -1,10 +1,12 @@
-"""Background feature tracker (RAW variant): LK tracking + corner top-up
-+ stereo, then host id/velocity/RANSAC-F bookkeeping.
+"""Background feature tracker: LK tracking + corner top-up + stereo,
+then host id/velocity/RANSAC-F bookkeeping.
 
-Per frame (the reference's FeatureTracker::TrackImage):
+Per frame (the reference's FeatureTracker::TrackImage / TrackImageNaive):
   * LK-track the previous features into the current frame (forward-
-    backward check, border check),
-  * top up to `max_cnt` with Shi-Tomasi corners away from survivors,
+    backward check, border check; with a mask, tracked points that land
+    where it is False are dropped),
+  * top up to `max_cnt` with Shi-Tomasi corners away from survivors
+    (and, with a mask, only where it is True),
   * left -> right LK for the stereo observations,
   * undistort to normalized coords; on the host: ids, track counts,
     epipolar (RANSAC-F) outlier kills and pixel velocities.
@@ -47,6 +49,24 @@ class TrackerConfig:
     dtype: torch.dtype = torch.float32
 
 
+def mask_at(mask, pts):
+    """mask [H,W] bool at the pixels of pts [N,2] (truncated, clamped
+    inside the image) -> [N] bool."""
+    H, W = mask.shape
+    xi = torch.clamp(pts[:, 0].to(torch.int64), 0, W - 1)
+    yi = torch.clamp(pts[:, 1].to(torch.int64), 0, H - 1)
+    return mask[yi, xi]
+
+
+def upload_stack(img, img_right, device):
+    """One frame's images as a [1|2,H,W] stack on the device, in their
+    own dtype (the trackers cast on the device)."""
+    img_np = np.asarray(img)
+    stack = img_np[None] if img_right is None else \
+        np.stack([img_np, np.asarray(img_right, img_np.dtype)])
+    return torch.from_numpy(stack).to(device)
+
+
 class TrackHandle(NamedTuple):
     """A dispatched frame whose packed result is not collected yet."""
 
@@ -84,7 +104,8 @@ class FeatureTracker:
             config.border, device=self.device)
 
     # ------------------------------------------------------------------
-    def _fused(self, prev_img, imgs, pts, valid, kill, use_right):
+    def _fused(self, prev_img, imgs, pts, valid, kill, use_right,
+               mask=None):
         cfg = self.cfg
         N = cfg.max_cnt
         img = imgs[0].to(cfg.dtype)
@@ -92,11 +113,15 @@ class FeatureTracker:
         valid = valid & ~kill
         p1, ok = self._tracker(prev_img, img, pts, valid)
         ok = ok & valid
+        if mask is not None:
+            ok = ok & mask_at(mask, p1)
         pts_a = torch.where(ok[:, None], p1, pts)
 
         cpts, _, cfound = corners.detect(
             img, max_corners=N, min_dist=cfg.min_dist, exclude_pts=pts_a,
             exclude_valid=ok, border=cfg.border)
+        if mask is not None:
+            cfound = cfound & mask_at(mask, cpts)
         # greedy slot assignment: found corners are a score-sorted
         # prefix; free slots (invalid first) take them in order
         free = torch.argsort(ok.to(torch.uint8), stable=True)
@@ -124,16 +149,24 @@ class FeatureTracker:
         return self.timer.stage(name) if self.timer is not None \
             else contextlib.nullcontext()
 
-    def track_begin(self, img, timestamp: float,
-                    img_right=None) -> TrackHandle:
-        """Upload + run the fused step for one frame."""
+    def track_begin(self, img, timestamp: float, mask=None,
+                    img_right=None, imgs_dev=None) -> TrackHandle:
+        """Upload + run the fused step for one frame.
+
+        mask: optional [H,W] bool, True where tracking is allowed.
+        imgs_dev: the frame's [1|2,H,W] stack already on the device (the
+        System uploads it once and shares it with the instance tracker);
+        img / img_right are then not read."""
         cfg = self.cfg
-        use_right = bool(cfg.stereo and img_right is not None)
+        if imgs_dev is not None:
+            use_right = bool(cfg.stereo and imgs_dev.shape[0] >= 2)
+        else:
+            use_right = bool(cfg.stereo and img_right is not None)
         with self._st("fe.upload"):
-            img_np = np.asarray(img)
-            stack = np.stack([img_np, np.asarray(img_right, img_np.dtype)]) \
-                if use_right else img_np[None]
-            imgs = torch.from_numpy(stack).to(self.device)
+            imgs = imgs_dev if imgs_dev is not None else upload_stack(
+                img, img_right if use_right else None, self.device)
+            mask_dev = None if mask is None else \
+                torch.from_numpy(np.asarray(mask, bool)).to(self.device)
         if self._dev is None:
             N = cfg.max_cnt
             prev = imgs[0].to(cfg.dtype)
@@ -147,7 +180,7 @@ class FeatureTracker:
             img2, pts2, valid2, packed = self._fused(
                 prev, imgs, pts, valid,
                 torch.from_numpy(kill_np.copy()).to(self.device),
-                use_right)
+                use_right, mask_dev)
         self._dev = (img2, pts2, valid2)
         return TrackHandle(timestamp, packed, use_right, kill_np)
 
@@ -215,8 +248,12 @@ class FeatureTracker:
             self.timer.counts["fe.host"] += 1
         return FrameFeatures(timestamp, feats)
 
-    def track(self, img, timestamp: float,
-              img_right=None) -> FrameFeatures:
-        """Process one grayscale [H,W] frame (and its right image)."""
-        return self.track_collect(self.track_begin(img, timestamp,
-                                                   img_right=img_right))
+    def track(self, img, timestamp: float, mask=None,
+              img_right=None, imgs_dev=None) -> FrameFeatures:
+        """Process one grayscale [H,W] frame (and its right image).
+
+        mask: optional [H,W] bool, True where tracking is allowed (the
+        reference's inv_merge_mask)."""
+        return self.track_collect(self.track_begin(
+            img, timestamp, mask=mask, img_right=img_right,
+            imgs_dev=imgs_dev))

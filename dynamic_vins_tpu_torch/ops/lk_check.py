@@ -31,16 +31,15 @@ def with_border_tail(pts, nf, H, W, rng):
 
 
 def near_threshold(pyr0, pyr1, pts, valid, pts1, fb_thresh, border,
-                   fb_levels):
+                   fb_levels, radius=10):
     """[N] bool: features whose plain fb_err lies within NEAR_PX of
     fb_thresh (their plain ok differs between thresholds fb_thresh -+
     NEAR_PX), or whose plain pts1 lies within NEAR_PX of the border."""
-    ok_lo = K.lk_track_plain(pyr0, pyr1, pts, valid, fb_thresh=fb_thresh
-                             - NEAR_PX, border=border,
-                             fb_levels=fb_levels)[1]
-    ok_hi = K.lk_track_plain(pyr0, pyr1, pts, valid, fb_thresh=fb_thresh
-                             + NEAR_PX, border=border,
-                             fb_levels=fb_levels)[1]
+    kw = dict(radius=radius, border=border, fb_levels=fb_levels)
+    ok_lo = K.lk_track_plain(pyr0, pyr1, pts, valid,
+                             fb_thresh=fb_thresh - NEAR_PX, **kw)[1]
+    ok_hi = K.lk_track_plain(pyr0, pyr1, pts, valid,
+                             fb_thresh=fb_thresh + NEAR_PX, **kw)[1]
     H, W = pyr0[0].shape
     lim = pts1.new_tensor([[border, border]])
     near = ((pts1 - lim).abs() < NEAR_PX) | (

@@ -22,7 +22,8 @@ Two kernels, one device function:
 The kernels pad and snap the windows themselves; `prepare` (padded
 copies and window origins) serves the plain version only. A wrapper
 given CUDA tensors launches its kernel or raises: it never falls back.
-The CUDA path takes radius RADIUS only.
+The CUDA path takes the radii in RADIUS only (10: the background
+tracker; 8: the instance tracker); the C entries pick the instantiation.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ import torch
 
 WIN_H = 48
 WIN_W = 256
-RADIUS = 10           # the kernels' compiled patch radius
+RADIUS = frozenset({8, 10})   # the kernels' compiled patch radii
 MAX_LEVELS = 8
 
 launches = 0          # lk_level kernel launches (reset by callers)
 track_launches = 0    # lk_track kernel launches (reset by callers)
+# lk_track kernel launches per patch radius (reset by callers)
+track_launches_by_radius = dict.fromkeys(sorted(RADIUS), 0)
+plain_levels = 0      # levels run by lk_level_plain (reset by callers)
 
 _lib = None
 
@@ -96,6 +100,8 @@ def _window_patch(img, oy, ox, ly, lx, P):
 def lk_level_plain(img0, img1, pts, guess, radius: int = 10,
                    iters: int = 10):
     """The kernel's function in plain torch (gathers) -> (flow, ok)."""
+    global plain_levels
+    plain_levels += 1
     P = 2 * radius + 1
     img0p, img1p, meta = prepare(img0, img1, pts, guess)
     oy0, ox0, oy1, ox1 = meta.unbind(dim=1)
@@ -192,11 +198,11 @@ def _kernels():
 
         lib = build.load("lk_level")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lk_level_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, vp,
-                                        vp, vp]
+        lib.lk_level_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci, ci, ci,
+                                        vp, vp, vp]
         lib.lk_level_launch.restype = ci
         lib.lk_track_launch.argtypes = [ctypes.POINTER(_Pyramids), vp, vp,
-                                        ci, ci, cf, ci, ci, vp, vp, vp]
+                                        ci, ci, ci, cf, ci, ci, vp, vp, vp]
         lib.lk_track_launch.restype = ci
         _lib = lib
     return _lib
@@ -232,9 +238,9 @@ def _check_points(pts, *others):
 
 
 def _check_cuda(radius, iters):
-    if radius != RADIUS:
-        raise ValueError(f"the CUDA LK kernels are built for radius "
-                         f"{RADIUS}, got {radius}")
+    if radius not in RADIUS:
+        raise ValueError(f"the CUDA LK kernels are built for radii "
+                         f"{sorted(RADIUS)}, got {radius}")
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
 
@@ -257,11 +263,11 @@ def lk_level(img0, img1, pts, guess, radius: int = 10, iters: int = 10):
     n = pts.shape[0]
     flow = torch.empty((n, 2), dtype=torch.float32, device=pts.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pts.device)
-    launch_level(img0, img1, pts, guess, iters, flow, ok)
+    launch_level(img0, img1, pts, guess, radius, iters, flow, ok)
     return flow, ok
 
 
-def launch_level(img0, img1, pts, guess, iters, flow, ok):
+def launch_level(img0, img1, pts, guess, radius, iters, flow, ok):
     """Launch the level kernel on checked CUDA inputs into flow / ok
     (counts one launch)."""
     global launches
@@ -269,7 +275,7 @@ def launch_level(img0, img1, pts, guess, iters, flow, ok):
         rc = _kernels().lk_level_launch(
             img0.data_ptr(), img1.data_ptr(), img0.shape[0],
             img0.shape[1], pts.data_ptr(), guess.data_ptr(), pts.shape[0],
-            iters, flow.data_ptr(), ok.data_ptr(),
+            radius, iters, flow.data_ptr(), ok.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lk_level kernel launch failed: CUDA error {rc}")
@@ -302,12 +308,12 @@ def lk_track(pyr0, pyr1, pts, valid, radius: int = 10, iters: int = 10,
     n = pts.shape[0]
     pts1 = torch.empty((n, 2), dtype=torch.float32, device=pts.device)
     ok = torch.empty((n,), dtype=torch.bool, device=pts.device)
-    launch_track(pyr0, pyr1, pts, valid, iters, fb_thresh, border,
+    launch_track(pyr0, pyr1, pts, valid, radius, iters, fb_thresh, border,
                  fb_levels, pts1, ok)
     return pts1, ok
 
 
-def launch_track(pyr0, pyr1, pts, valid, iters, fb_thresh, border,
+def launch_track(pyr0, pyr1, pts, valid, radius, iters, fb_thresh, border,
                  fb_levels, pts1, ok):
     """Launch the track kernel on checked CUDA inputs into pts1 / ok
     (counts one launch)."""
@@ -322,9 +328,10 @@ def launch_track(pyr0, pyr1, pts, valid, iters, fb_thresh, border,
     with torch.cuda.device(pts.device):
         rc = _kernels().lk_track_launch(
             ctypes.byref(arg), pts.data_ptr(), valid.data_ptr(),
-            pts.shape[0], iters, fb_thresh, border, fb_levels,
+            pts.shape[0], radius, iters, fb_thresh, border, fb_levels,
             pts1.data_ptr(), ok.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"lk_track kernel launch failed: CUDA error {rc}")
     track_launches += 1
+    track_launches_by_radius[radius] += 1

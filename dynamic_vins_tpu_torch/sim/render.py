@@ -49,3 +49,23 @@ def render_frame(rig: StereoRig, p_wb, q_wb, landmarks, intensities,
 def make_intensities(n: int, seed: int = 0):
     rng = np.random.default_rng(seed)
     return torch.tensor(rng.uniform(120.0, 255.0, size=n))
+
+
+def render_depth(rig: StereoRig, p_wb, q_wb, landmarks, cam: int = 0,
+                 radius: float = 3.0):
+    """Depth image consistent with `render_frame`'s splats: each pixel
+    takes the nearest landmark depth whose splat center lies within
+    `radius` px (inf where none does), on landmarks' device."""
+    uv, vis, ptc = observe(rig, p_wb, q_wb, landmarks, cam=cam)
+    H, W = rig.height, rig.width
+    dev = uv.device
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=uv.dtype, device=dev),
+                            torch.arange(W, dtype=uv.dtype, device=dev),
+                            indexing="ij")
+    depth = torch.full((H, W), float("inf"), dtype=uv.dtype, device=dev)
+    for i in range(uv.shape[0]):
+        d2 = (xx - uv[i, 0]) ** 2 + (yy - uv[i, 1]) ** 2
+        cand = torch.where(vis[i] & (d2 <= radius * radius), ptc[i, 2],
+                           float("inf"))
+        depth = torch.minimum(depth, cand)
+    return depth

@@ -1,14 +1,17 @@
-"""System orchestration, RAW mode: images (+IMU) -> feature tracker ->
-sliding-window estimator -> TUM trajectory.
+"""System orchestration: perception results -> feature tracker (and, in
+DYNAMIC mode, MOT and the instance tracker) -> sliding-window estimator
+(and the per-object backend) -> TUM trajectory and KITTI-MOT file.
 
-Built from one `VioConfig` like the JAX package's System. With
-`VioConfig.pipelined` the frontend runs two frames ahead of the backend
-(each frame's tracker step is dispatched before the oldest one is
-collected) and the estimator keeps its steady state on the device, so
-`process` returns the output of an earlier frame, or None; `close`
-drains every frame in flight. The NAIVE and DYNAMIC modes, lines,
-online perception, loop closure and the multi-device engine are not
-ported yet and raise.
+Built from one `VioConfig` like the JAX package's System, in three
+modes: RAW (stereo+IMU), NAIVE (the background tracker gated by a
+dynamic mask: the frame's `dynamic_mask`, else the union of its instance
+masks) and DYNAMIC (instances segmented, associated by MOT, tracked and
+estimated as moving objects). With `VioConfig.pipelined` (RAW only) the
+frontend runs two frames ahead of the backend and the estimator keeps
+its steady state on the device, so `process` returns the output of an
+earlier frame, or None; `close` drains every frame in flight. Pipelined
+NAIVE/DYNAMIC, lines, online perception, loop closure and the
+multi-device engine are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,10 +25,17 @@ import torch
 
 from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
                                                         EstimatorConfig)
+from dynamic_vins_tpu_torch.frontend.instance_tracker import (
+    InstanceTracker, InstanceTrackerConfig)
 from dynamic_vins_tpu_torch.frontend.tracker import (FeatureTracker,
-                                                     TrackerConfig)
+                                                     TrackerConfig,
+                                                     upload_stack)
+from dynamic_vins_tpu_torch.geometry import lie_np
 from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
-from dynamic_vins_tpu_torch.io.writers import TumWriter
+from dynamic_vins_tpu_torch.io import perception
+from dynamic_vins_tpu_torch.io.writers import KittiMotWriter, TumWriter
+from dynamic_vins_tpu_torch.mot.tracker import (MotConfig,
+                                                MultiObjectTracker, iou)
 from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
 from dynamic_vins_tpu_torch.utils.precision import resolve_device
 from dynamic_vins_tpu_torch.utils.timing import StageTimer
@@ -54,12 +64,16 @@ def obs_capacity(cfg: VioConfig) -> int:
 
 @dataclass
 class FrameInput:
-    """What the RAW system consumes for one frame."""
+    """What the system consumes for one frame."""
 
     timestamp: float
     img_left: np.ndarray
     img_right: Optional[np.ndarray] = None
     imu: Optional[tuple] = None            # (acc [M+1,3], gyr, dt [M])
+    seg: Optional[perception.SegResult] = None
+    boxes3d: Optional[list] = None         # List[perception.Box3D]
+    disparity: Optional[np.ndarray] = None
+    dynamic_mask: Optional[np.ndarray] = None  # True = dynamic pixel
 
 
 class System:
@@ -67,10 +81,10 @@ class System:
                  device=None, dtype: torch.dtype = torch.float64):
         """device: CUDA unless "cpu" is asked for; dtype: the
         estimator's float type (the tracker works in float32)."""
-        if cfg.slam != SlamMode.RAW:
+        if cfg.slam != SlamMode.RAW and cfg.pipelined:
             raise NotImplementedError(
-                f"slam={cfg.slam.value} is not ported yet: ROADMAP queue "
-                "1 items 11 (NAIVE) and 15 (DYNAMIC)")
+                f"pipelined slam={cfg.slam.value} is not ported yet: "
+                "ROADMAP queue 1 item 15b (pipelined NAIVE/DYNAMIC)")
         for name, item in _TODO.items():
             if getattr(cfg, name):
                 raise NotImplementedError(
@@ -92,7 +106,10 @@ class System:
         intr_r = PinholeIntrinsics.make(*intr_r_vals[:4],
                                         *(intr_r_vals[4:8] or []))
         self.intr, self.intr_r = intr, intr_r
+        # fx, fy, cx, cy as the float32 intrinsics hold them
+        self._pinhole = tuple(float(np.float32(v)) for v in intr_vals[:4])
         p_bc, q_bc = cfg.extrinsics()
+        self.baseline = float(np.linalg.norm(p_bc[1] - p_bc[0])) or 0.1
 
         self.tracker = FeatureTracker(
             TrackerConfig(max_cnt=cfg.max_cnt, min_dist=cfg.min_dist,
@@ -109,13 +126,29 @@ class System:
                             estimate_extrinsic=cfg.estimate_extrinsic,
                             estimate_td=cfg.estimate_td,
                             use_plane_constraint=cfg.use_plane_constraint,
+                            dynamic=cfg.slam == SlamMode.DYNAMIC,
                             dtype=dtype),
             p_bc, q_bc, device=self.device)
         self.estimator.timer = self.timer
 
+        self.mot = None
+        self.inst_tracker = None
+        if cfg.slam == SlamMode.DYNAMIC:
+            # ReID (embed_fn) waits for the perception nets (item 16)
+            self.mot = MultiObjectTracker(
+                MotConfig(n_init=cfg.mot_n_init, max_age=cfg.mot_max_age))
+            self.inst_tracker = InstanceTracker(
+                InstanceTrackerConfig(
+                    max_dynamic_cnt=cfg.max_dynamic_cnt,
+                    min_dynamic_dist=cfg.min_dynamic_dist),
+                intr, self.baseline, p_bc[0], q_bc[0], device=self.device)
+
         os.makedirs(os.path.dirname(output_prefix) or ".", exist_ok=True)
         self.tum_writer = TumWriter(output_prefix + "_ego_tum.txt")
+        self.mot_writer = KittiMotWriter(output_prefix + "_mot.txt") \
+            if cfg.slam == SlamMode.DYNAMIC else None
         self.frame_idx = 0
+        self._last_dets = {}
         # pipelined frontend: frames dispatched to the tracker and not
         # collected yet, at most `_fe_lag` after a call to process
         self._fe_pending: List[tuple] = []
@@ -135,20 +168,234 @@ class System:
                 out = self._finish_oldest_pending()
             self._fe_pending.append((h, fi))
             return out
+        with t.stage("perception"):
+            masks_by_tid, background_mask = self._perception(fi)
         with t.stage("frontend"):
+            imgs_dev = None
+            if self.inst_tracker is not None:
+                # one upload a frame, shared with the instance tracker
+                use_right = self.cfg.is_stereo and fi.img_right is not None
+                imgs_dev = upload_stack(
+                    fi.img_left, fi.img_right if use_right else None,
+                    self.device)
             feats = self.tracker.track(fi.img_left, fi.timestamp,
-                                       img_right=fi.img_right)
-        return self._finish_frame(fi, feats)
+                                       mask=background_mask,
+                                       img_right=fi.img_right,
+                                       imgs_dev=imgs_dev)
+        instances = None
+        if self.inst_tracker is not None and masks_by_tid:
+            with t.stage("instances"):
+                h_inst = self.inst_tracker.track_begin(
+                    fi.img_left, {tid: m for tid, (m, _)
+                                  in masks_by_tid.items()},
+                    img_right=fi.img_right, disparity=fi.disparity,
+                    ego_pose=self._ego_estimate(), imgs_dev=imgs_dev)
+                instances = self._collect_instances(h_inst, masks_by_tid)
+        return self._finish_frame(fi, feats, instances)
 
-    def _finish_frame(self, fi: FrameInput, feats):
+    def _finish_frame(self, fi: FrameInput, feats, instances=None):
         t = self.timer
         with t.stage("backend"):
-            out = self.estimator.process_frame(feats, fi.imu)
+            out = self.estimator.process_frame(feats, fi.imu,
+                                               instances=instances)
         with t.stage("output"):
             if out is not None:
                 self.tum_writer.write(out.timestamp, out.p, out.q)
+            if self.mot_writer is not None:
+                self._write_mot(fi)
         self.frame_idx += 1
         return out
+
+    # ------------------------------------------------------------------
+    def _perception(self, fi: FrameInput):
+        """Instance masks and the background mask (ImageProcessor::Run +
+        SemanticImage::SetMaskAndRoi): ({tid: (mask, det)}, mask or
+        None), the background mask True where tracking is allowed."""
+        cfg = self.cfg
+        H, W = fi.img_left.shape
+        if cfg.slam == SlamMode.RAW:
+            return {}, None
+        if cfg.slam == SlamMode.NAIVE:
+            # mask-gated rejection only: dynamic pixels excluded
+            if fi.dynamic_mask is not None:
+                return {}, ~fi.dynamic_mask
+            if fi.seg is not None and len(fi.seg.masks):
+                return {}, ~perception.merge_masks(fi.seg.masks, (H, W))
+            return {}, None
+
+        # DYNAMIC: dynamic-class instances, MOT association
+        masks_by_tid = {}
+        merged = np.zeros((H, W), bool)
+        if fi.seg is not None and len(fi.seg.masks):
+            keep = [i for i, l in enumerate(fi.seg.labels)
+                    if int(l) in perception.COCO_DYNAMIC_IDS]
+            masks = fi.seg.masks[keep]
+            labels = fi.seg.labels[keep]
+            boxes2d = perception.masks_to_boxes2d(masks)
+            assign = self.mot.update(boxes2d, classes=labels,
+                                     img=fi.img_left) \
+                if len(boxes2d) else {}
+            used3d: set = set()         # BoxAssociate2Dto3D
+            for det_i, tid in assign.items():
+                det = dict(cls=int(labels[det_i]), bbox=boxes2d[det_i])
+                if fi.boxes3d:
+                    b3 = self._match_box3d(boxes2d[det_i], fi.boxes3d,
+                                           cls=int(labels[det_i]),
+                                           used=used3d)
+                    if b3 is not None:
+                        det["dims_det"] = b3.dims
+                        det["q_det"] = self._qdet_world(b3)
+                        det["box3d"] = b3
+                masks_by_tid[tid] = (masks[det_i], det)
+                merged |= masks[det_i]
+        background = ~merged if masks_by_tid else None
+        self._last_dets = {tid: det for tid, (_, det)
+                           in masks_by_tid.items()}
+        return masks_by_tid, background
+
+    def _ego_estimate(self):
+        """The newest estimated ego pose (the instance tracker lifts the
+        extra points with it): the frame before the current one."""
+        fc = self.estimator.frame_count
+        if fc:
+            return (self.estimator.state.p[fc - 1],
+                    self.estimator.state.q[fc - 1])
+        return np.zeros(3), np.array([1.0, 0, 0, 0])
+
+    def _collect_instances(self, h_inst, masks_by_tid):
+        """Fetch an instance-tracker frame and merge the frame's
+        detections (cls, dims_det, q_det) into the push_frame dicts."""
+        tracked = self.inst_tracker.track_collect(h_inst)
+        instances = {}
+        for tid, data in tracked.items():
+            _, det = masks_by_tid[tid]
+            data = dict(data)
+            data["cls"] = det.get("cls", 0)
+            if det.get("dims_det") is not None:
+                data["dims_det"] = det["dims_det"]
+            if det.get("q_det") is not None:
+                data["q_det"] = det["q_det"]
+            instances[tid] = data
+        return instances
+
+    def _project_box3d_bbox(self, bottom_center, dims, R_co):
+        """The 8 corners of a camera-frame 3D box in pixels -> (x1, y1,
+        x2, y2), or None if the box is behind the camera."""
+        dx, dy, dz = [float(v) for v in dims]
+        sx = np.array([-1, -1, -1, -1, 1, 1, 1, 1]) * dx / 2
+        sy = np.array([0, 0, -1, -1, 0, 0, -1, -1]) * dy  # bottom->top
+        sz = np.array([-1, 1, -1, 1, -1, 1, -1, 1]) * dz / 2
+        corners = np.asarray(bottom_center)[None, :] + \
+            (np.asarray(R_co) @ np.stack([sx, sy, sz]).astype(float)).T
+        z = corners[:, 2]
+        if (z <= 0.1).any():
+            return None
+        fx, fy, cx0, cy0 = self._pinhole
+        u = fx * corners[:, 0] / z + cx0
+        v = fy * corners[:, 1] / z + cy0
+        return (float(u.min()), float(v.min()),
+                float(u.max()), float(v.max()))
+
+    def _match_box3d(self, bbox2d, boxes3d, cls=None,
+                     iou_thresh: float = 0.1, used=None):
+        """The 3D detection whose projected box overlaps the 2D one most
+        (IoU > 0.1), of the same class, each 3D box used at most once
+        (BoxAssociate2Dto3D, image_process.cpp:28-61)."""
+        want = perception.COCO_TO_KITTI.get(cls) if cls is not None \
+            else None
+        best, best_i, best_iou = None, None, iou_thresh
+        for bi, b in enumerate(boxes3d):
+            if used is not None and bi in used:
+                continue
+            if want is not None and b.class_name != want:
+                continue
+            proj = self._project_box3d_bbox(b.bottom_center, b.dims,
+                                            b.rotation_matrix())
+            if proj is None:
+                continue
+            i = iou(np.asarray(bbox2d, float), np.asarray(proj))
+            if i > best_iou:
+                best, best_i, best_iou = b, bi, i
+        if best is not None and used is not None:
+            used.add(best_i)
+        return best
+
+    def _qdet_world(self, box3d):
+        """A camera-frame detected orientation in the world, with the
+        current ego estimate (host numpy)."""
+        st = self.estimator.state
+        k = max(self.estimator.frame_count - 1, 0)
+        q_co = lie_np.matrix_to_quat(np.asarray(box3d.rotation_matrix()))
+        p_wc, q_wc = lie_np.pose_compose(
+            np.asarray(st.p[k], float), np.asarray(st.q[k], float),
+            np.asarray(st.p_bc[0], float), np.asarray(st.q_bc[0], float))
+        return lie_np.quat_multiply(q_wc, q_co)
+
+    def _write_mot(self, fi: FrameInput):
+        """One KITTI-tracking line per instance: the frontend's 2D box
+        (output.cpp:426,448), or, for an instance without a detection
+        this frame, its projected estimated 3D box."""
+        states = self.estimator.get_instance_states()
+        st = self.estimator.state
+        k = max(self.estimator.frame_count - 1, 0)
+        p_wc, q_wc = lie_np.pose_compose(
+            np.asarray(st.p[k], float), np.asarray(st.q[k], float),
+            np.asarray(st.p_bc[0], float), np.asarray(st.q_bc[0], float))
+        p_cw, q_cw = lie_np.pose_inverse(p_wc, q_wc)
+        H, W = fi.img_left.shape
+
+        for tid in sorted(set(states) | set(self._last_dets)):
+            s = states.get(tid)
+            det = self._last_dets.get(tid)
+            cls_coco = s["cls"] if s is not None else det["cls"]
+            kitti_cls = perception.COCO_TO_KITTI.get(cls_coco, "Car")
+
+            if s is not None:
+                p_cam = lie_np.pose_transform_point(
+                    p_cw, q_cw, np.asarray(s["p"], float))
+                # camera-frame yaw of the object (about -y)
+                q_obj_cam = lie_np.quat_multiply(
+                    q_cw, np.asarray(s["q"], float))
+                R_co = lie_np.quat_to_matrix(q_obj_cam)
+                yaw = float(np.arctan2(-R_co[2, 0], R_co[0, 0]))
+                dims = np.asarray(s["dims"], float)
+                bottom = p_cam.copy()
+                bottom[1] += dims[2] / 2.0
+                hwl = (dims[2], dims[1], dims[0])
+            elif det is not None and det.get("box3d") is not None:
+                b3 = det["box3d"]
+                bottom = np.asarray(b3.bottom_center, float)
+                # Box3D.dims is (l, h, w) camera x,y,z extents
+                hwl = (float(b3.dims[1]), float(b3.dims[2]),
+                       float(b3.dims[0]))
+                yaw = float(b3.yaw)
+                R_co = b3.rotation_matrix()
+                dims = None
+            else:
+                bottom = np.zeros(3)
+                hwl = (1.5, 1.8, 4.0)     # reference default dims
+                yaw = 0.0
+                R_co = dims = None
+
+            if det is not None:
+                bbox = tuple(float(v) for v in det["bbox"])
+            elif dims is not None:
+                # the estimated box (object-frame x/y/z extents) seen
+                # from the camera
+                bbox = self._project_box3d_bbox(
+                    bottom, (dims[0], dims[2], dims[1]), R_co)
+                if bbox is None:
+                    continue          # behind the camera: unevaluable
+                bbox = (max(bbox[0], 0.0), max(bbox[1], 0.0),
+                        min(bbox[2], W - 1.0), min(bbox[3], H - 1.0))
+                if bbox[2] <= bbox[0] or bbox[3] <= bbox[1]:
+                    continue
+            else:
+                continue
+
+            self.mot_writer.write(
+                self.frame_idx, tid, kitti_cls, bbox, hwl,
+                bottom, yaw, score=1.0)
 
     def _finish_oldest_pending(self):
         """Collect + finish the oldest frame in flight."""
@@ -182,4 +429,6 @@ class System:
         """Drain, close the trajectory file, return the stage means."""
         self.drain()
         self.tum_writer.close()
+        if self.mot_writer is not None:
+            self.mot_writer.close()
         return self.timer.summary()

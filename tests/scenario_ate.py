@@ -10,6 +10,7 @@ camera rate (defaults: chip_smoke's).
     python tests/scenario_ate.py --impl both --sigma 1.6 --no-ransac-f
     python tests/scenario_ate.py --impl both --lk plain
     python tests/scenario_ate.py --lk-vs-truth --frame-hz 10
+    python tests/scenario_ate.py --impl both --slam dynamic --no-ransac-f
 
 Prints one line per frame (features, position error) and, last, the
 ATE. The port runs on --device (default cpu) with its estimator in
@@ -18,7 +19,11 @@ with its CPU LK (the Scharr/gather form), or, with --lk plain or cuda,
 the kernel's semantics: the Pallas level in interpret mode with the
 seeded level-0 back-check. Both estimators take their default path,
 the steady state as one megastep a frame, or with --multi-dispatch the
-multi-dispatch path (`use_megastep = False`).
+multi-dispatch path (`use_megastep = False`). `--slam dynamic` runs the
+DYNAMIC System on chip_smoke's dynamic scene (the same scene with 3
+moving textured boxes, their masks, disparity and 3D boxes; each side
+renders it with its own simulator) and also prints, per instance, the
+distance of its final estimate to the nearest object's truth.
 RANSAC-F is each side's own (OpenCV on the JAX side, where installed),
 or off on both with --no-ransac-f. `--impl both` runs the two on the
 same frames and prints, per frame, where they part: the tracked slot
@@ -76,21 +81,41 @@ def _compare(out_t, out_j):
               f"{np.linalg.norm(t['p'] - j['p']):.3e} m", flush=True)
 
 
+def _instances(states, objs):
+    """Per instance: distance of its final estimate to the nearest
+    object's last true position."""
+    for tid, s in sorted(states.items()):
+        err = min(np.linalg.norm(np.asarray(o.gt_p[-1]) - s["p"])
+                  for o in objs)
+        print(f"instance {tid}: {err:.4f} m from the nearest object, "
+              f"static {s['is_static']}", flush=True)
+
+
+def _dyn_kw(df):
+    return dict(seg=df.seg, boxes3d=df.boxes3d, disparity=df.disparity)
+
+
 def run_torch(args):
     import torch
 
     from dynamic_vins_tpu_torch.frontend import lk
     from dynamic_vins_tpu_torch.sim import synthetic as sim
     from dynamic_vins_tpu_torch.system import FrameInput, System
-    from dynamic_vins_tpu_torch.utils.config import VioConfig
+    from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
 
     dev = torch.device(args.device)
     seq, imgs, imus = chip_smoke.make_scene(torch, dev, sigma=args.sigma,
                                             landmarks=args.landmarks,
                                             frame_hz=args.frame_hz)
     dtype = {"f32": torch.float32, "f64": torch.float64}[args.dtype]
-    system = System(chip_smoke.slice_config(seq.rig, VioConfig()),
-                    output_prefix=args.out + "_torch", device=dev,
+    cfg = chip_smoke.slice_config(seq.rig, VioConfig())
+    dyn = args.slam == "dynamic"
+    if dyn:
+        cfg.slam = SlamMode.DYNAMIC
+        dframes, objs = chip_smoke.make_dynamic(torch, dev, seq,
+                                                sigma=args.sigma)
+        imgs = [(d.img_left, d.img_right) for d in dframes]
+    system = System(cfg, output_prefix=args.out + "_torch", device=dev,
                     dtype=dtype)
     system.estimator.cfg.use_megastep = not args.multi_dispatch
     tc = system.tracker.cfg
@@ -103,9 +128,12 @@ def run_torch(args):
         sim.state_at(seq.frame_times[0])[2].numpy())
     out = []
     for k in range(chip_smoke.FRAMES):
-        o = system.process(FrameInput(float(seq.frame_times[k]),
-                                      imgs[k][0], imgs[k][1], imu=imus[k]))
+        o = system.process(FrameInput(
+            float(seq.frame_times[k]), imgs[k][0], imgs[k][1], imu=imus[k],
+            **(_dyn_kw(dframes[k]) if dyn else {})))
         out.append(_frame(system.tracker, o))
+    if dyn:
+        _instances(system.estimator.get_instance_states(), objs)
     system.close()
     return seq.gt_p.numpy(), out, system.estimator.failed
 
@@ -138,10 +166,10 @@ def run_jax(args):
     jax.config.update("jax_enable_x64", True)
 
     from dynamic_vins_tpu.geometry import lie
-    from dynamic_vins_tpu.sim import frontend_sim, render
+    from dynamic_vins_tpu.sim import dynamic_scene, frontend_sim, render
     from dynamic_vins_tpu.sim import synthetic as sim
     from dynamic_vins_tpu.system import FrameInput, System
-    from dynamic_vins_tpu.utils.config import VioConfig
+    from dynamic_vins_tpu.utils.config import SlamMode, VioConfig
 
     n = chip_smoke.FRAMES
     seq = sim.generate_sequence(num_frames=n, frame_hz=args.frame_hz,
@@ -165,6 +193,15 @@ def run_jax(args):
     cfg.body_T_cam1 = T1.reshape(-1).tolist()
     if args.lk in ("plain", "cuda"):
         _use_pallas_interpret_lk()
+    dyn = args.slam == "dynamic"
+    if dyn:
+        cfg.slam = SlamMode.DYNAMIC
+        draw_dyn = render.render_frame
+        dynamic_scene.render.render_frame = \
+            lambda *a, **k: draw_dyn(*a, sigma=args.sigma, **k)
+        dframes, objs = dynamic_scene.make_dynamic_scene(
+            seq, num_objects=chip_smoke.N_OBJECTS, seed=chip_smoke.SEED)
+        dynamic_scene.render.render_frame = draw_dyn
     system = System(cfg, output_prefix=args.out + "_jax")
     system.estimator.cfg.use_megastep = not args.multi_dispatch
     system.tracker.cfg.use_ransac_f = not args.no_ransac_f
@@ -177,11 +214,17 @@ def run_jax(args):
     frames_imu = frontend_sim.make_frames(seq)
     out = []
     for k in range(n):
-        il = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 0))
-        ir = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 1))
-        o = system.process(FrameInput(float(seq.frame_times[k]), il, ir,
-                                      imu=frames_imu[k][1]))
+        if dyn:
+            il, ir = dframes[k].img_left, dframes[k].img_right
+        else:
+            il = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 0))
+            ir = np.asarray(draw(seq.gt_p[k], seq.gt_q[k], 1))
+        o = system.process(FrameInput(
+            float(seq.frame_times[k]), il, ir, imu=frames_imu[k][1],
+            **(_dyn_kw(dframes[k]) if dyn else {})))
         out.append(_frame(system.tracker, o))
+    if dyn:
+        _instances(system.estimator.get_instance_states(sync=True), objs)
     system.close()
     return np.asarray(seq.gt_p), out, system.estimator.failed
 
@@ -244,6 +287,8 @@ def main():
                     help="turn RANSAC-F off on both sides")
     ap.add_argument("--multi-dispatch", action="store_true",
                     help="both estimators on the multi-dispatch path")
+    ap.add_argument("--slam", choices=("raw", "dynamic"), default="raw",
+                    help="the RAW slice or the DYNAMIC one")
     ap.add_argument("--out", default="output/scenario_ate")
     ap.add_argument("--lk-vs-truth", action="store_true",
                     help="only compare the two LK forms with the ground "
@@ -251,7 +296,7 @@ def main():
     args = ap.parse_args()
     if args.lk_vs_truth:
         return lk_vs_truth(args)
-    tag = (f"sigma {args.sigma} landmarks {args.landmarks} "
+    tag = (f"{args.slam} sigma {args.sigma} landmarks {args.landmarks} "
            f"{args.frame_hz} Hz ransac-f {not args.no_ransac_f} megastep "
            f"{not args.multi_dispatch}")
     runs = {}

@@ -1,7 +1,8 @@
 """The port's entry points: they run on the CUDA device unless asked for
 the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
-ROADMAP item."""
+ROADMAP item (NAIVE and DYNAMIC run on the sequential paths; pipelined
+they raise)."""
 
 import numpy as np
 import pytest
@@ -9,6 +10,8 @@ import torch
 
 from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
                                                         EstimatorConfig)
+from dynamic_vins_tpu_torch.frontend.instance_tracker import (
+    InstanceTracker, InstanceTrackerConfig)
 from dynamic_vins_tpu_torch.frontend.tracker import (FeatureTracker,
                                                      TrackerConfig)
 from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
@@ -21,9 +24,23 @@ P_BC = np.zeros((2, 3))
 Q_BC = np.tile([1.0, 0.0, 0.0, 0.0], (2, 1))
 INTR = PinholeIntrinsics.make(460.0, 460.0, 376.0, 240.0)
 
+def _mode(slam):
+    cfg = VioConfig()
+    cfg.slam = slam
+    return cfg
+
+
 ENTRY = {
     "system": lambda **kw: System(VioConfig(), output_prefix=kw.pop("out"),
                                   **kw),
+    "system_naive": lambda **kw: System(_mode(SlamMode.NAIVE),
+                                        output_prefix=kw.pop("out"), **kw),
+    "system_dynamic": lambda **kw: System(_mode(SlamMode.DYNAMIC),
+                                          output_prefix=kw.pop("out"),
+                                          **kw),
+    "instance_tracker": lambda **kw: InstanceTracker(
+        InstanceTrackerConfig(), INTR, 0.11, P_BC[0], Q_BC[0],
+        device=kw.get("device")),
     "estimator": lambda **kw: Estimator(EstimatorConfig(num_frames=4),
                                         P_BC, Q_BC, device=kw.get("device")),
     "tracker": lambda **kw: FeatureTracker(TrackerConfig(), INTR,
@@ -56,14 +73,20 @@ def test_unported_system_switches_raise(field, tmp_path):
 
 @pytest.mark.parametrize("mode", [SlamMode.NAIVE, SlamMode.DYNAMIC])
 def test_unported_modes_raise(mode, tmp_path):
-    cfg = VioConfig()
-    cfg.slam = mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """NAIVE and DYNAMIC are ported on the sequential paths; pipelined
+    they raise, naming ROADMAP queue 1 item 15b."""
+    cfg = _mode(mode)
+    system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+    assert (system.mot is not None) == (mode == SlamMode.DYNAMIC)
+    assert (system.estimator.im is not None) == (mode == SlamMode.DYNAMIC)
+    system.close()
+    cfg.pipelined = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.*15b"):
         System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(use_line=True),
-                                dict(dynamic=True),
+                                dict(dynamic=True, pipelined=True),
                                 dict(calibrate_extrinsic_rotation=True),
                                 dict(stereo=False)])
 def test_unported_estimator_paths_raise(kw):

@@ -23,6 +23,17 @@ def _port_modules():
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
 
 
+def test_scan_covers_every_module():
+    """The scans below reach the DYNAMIC slice's modules too."""
+    mods = set(_port_modules())
+    for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
+              "sim.dynamic_scene", "sim.render", "estimator.box_fit",
+              "estimator.host_math", "estimator.instance_manager",
+              "factors.object_factors", "solver.object_solver",
+              "frontend.instance_tracker", "convert", "system"):
+        assert f"dynamic_vins_tpu_torch.{m}" in mods, m
+
+
 def test_import_loads_no_jax():
     code = (
         "import importlib, sys\n"

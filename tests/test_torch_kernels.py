@@ -60,14 +60,15 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("radius", [10, 8])
 @pytest.mark.parametrize("kind", [0, 1])
-def test_lk_kernel_matches_plain(cuda_device, kind):
+def test_lk_kernel_matches_plain(cuda_device, kind, radius):
     args = [a.to(cuda_device) for a in _case(kind)]
     before = tk.launches
-    fk, okk = tk.lk_level(*args, radius=10, iters=10)
+    fk, okk = tk.lk_level(*args, radius=radius, iters=10)
     torch.cuda.synchronize()
     assert tk.launches == before + 1
-    fp, okp = tk.lk_level_plain(*args, radius=10, iters=10)
+    fp, okp = tk.lk_level_plain(*args, radius=radius, iters=10)
     np.testing.assert_array_equal(okk.cpu().numpy(), okp.cpu().numpy())
     ok = okp.cpu().numpy()
     np.testing.assert_allclose(fk.cpu().numpy()[ok], fp.cpu().numpy()[ok],
@@ -117,3 +118,54 @@ def test_lk_track_kernel_matches_plain(cuda_device, kind, fb_levels):
     assert err <= FLOW_ATOL
     assert not (kern[1] & ~valid).any()
     assert 0 < int(plain[1].sum()) < int(valid.sum())
+
+
+def _instance_case(device):
+    """(pyr0, pyr1, pts, valid): the instance tracker's track, a 3-level
+    752x480 pyramid pair and K*N = 400 rows of which a third are valid
+    (features on textured patches, 20 of them within 12 px of the
+    borders), the rest stale positions spread over the image."""
+    img0, img1 = _pair((2.5, -1.5), 50, 480, 752)
+    rng = np.random.default_rng(51)
+    pts = rng.uniform([20, 20], [732, 460], size=(400, 2))
+    pts = lk_check.with_border_tail(pts, 380, 480, 752, rng)
+    valid = np.zeros(400, bool)
+    valid[rng.permutation(400)[:133]] = True
+    valid[380:] = True
+    f = lambda a: a.to(device).contiguous()
+    return ([f(a) for a in tpyr.build_pyramid(img0, 3)],
+            [f(a) for a in tpyr.build_pyramid(img1, 3)],
+            torch.tensor(pts, dtype=torch.float32, device=device),
+            torch.tensor(valid, device=device))
+
+
+@pytest.mark.gpu
+def test_lk_track_kernel_radius8_matches_plain(cuda_device):
+    """The instance tracker's configuration: radius 8, 3 levels, fb 1.0
+    px, border 3, seeded level-0 back-check."""
+    pyr0, pyr1, pts, valid = _instance_case(cuda_device)
+    kw = dict(radius=8, iters=10, fb_thresh=1.0, border=3, fb_levels=1)
+    before = tk.track_launches
+    kern = tk.lk_track(pyr0, pyr1, pts, valid, **kw)
+    torch.cuda.synchronize()
+    assert tk.track_launches == before + 1
+    plain = tk.lk_track_plain(pyr0, pyr1, pts, valid, **kw)
+    near = lk_check.near_threshold(pyr0, pyr1, pts, valid, plain[0], 1.0,
+                                   3, 1, radius=8)
+    err, bad, exempt = lk_check.compare_track(kern, plain, near)
+    print(f"radius 8: max |pts1 err| {err:.2e} px, ok differs on {bad} "
+          f"features and on {exempt} within 1e-5 px of a threshold; ok "
+          f"{int(plain[1].sum())}/{int(valid.sum())} valid")
+    assert bad == 0
+    assert err <= FLOW_ATOL
+    assert not (kern[1] & ~valid).any()
+    assert 0 < int(plain[1].sum()) <= int(valid.sum())
+
+
+@pytest.mark.gpu
+def test_lk_kernels_refuse_other_radii(cuda_device):
+    pyr0, pyr1, pts, valid = _instance_case(cuda_device)
+    with pytest.raises(ValueError):
+        tk.lk_track(pyr0, pyr1, pts, valid, radius=9)
+    with pytest.raises(ValueError):
+        tk.lk_level(pyr0[0], pyr1[0], pts, torch.zeros_like(pts), radius=7)

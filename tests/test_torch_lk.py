@@ -135,6 +135,49 @@ def test_plain_track_matches_pallas_track():
                                atol=FLOW_ATOL)
 
 
+def test_plain_track_matches_pallas_track_radius8():
+    """The instance tracker's track: radius 8, 3 levels, fb 1.0 px,
+    border 3, seeded level-0 back-check; `lk_track_plain` against the
+    JAX package's `track` with the Pallas level at radius 8 in interpret
+    mode. 30 rows, two thirds invalid (the instance rows' unused slots),
+    4 near the borders."""
+    img0, img1 = _pair(shift=(3.0, 2.0), seed=25, H=240, W=376)
+    rng = np.random.default_rng(26)
+    pts = np.concatenate([
+        _pts(rng, 26, (20, 20), (356, 220)), _pts(rng, 1, (1, 1), (8, 239)),
+        _pts(rng, 1, (368, 1), (375, 239)), _pts(rng, 1, (1, 1), (375, 8)),
+        _pts(rng, 1, (1, 232), (375, 239))])
+    valid = np.zeros(30, bool)
+    valid[::3] = True
+    valid[26:] = True
+    T = torch.tensor
+    p0 = tpyr.build_pyramid(T(img0), 3)
+    p1 = tpyr.build_pyramid(T(img1), 3)
+    J = lambda pyr: [jnp.asarray(a.numpy()) for a in pyr]
+    level = lambda a, b, p, g: lk_pallas.lk_level(a, b, p, g, radius=8,
+                                                  iters=10, interpret=True)
+    pj, okj = jlk.track(J(p0), J(p1), jnp.asarray(pts), jnp.asarray(valid),
+                        radius=8, iters=10, fb_thresh=1.0, border=3,
+                        level_fn=level, fb_levels=1)
+    pt, okt = tk.lk_track_plain(p0, p1, T(pts), T(valid), radius=8,
+                                iters=10, fb_thresh=1.0, border=3,
+                                fb_levels=1)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert 0 < okt.sum() < valid.sum()
+    assert not (okt.numpy() & ~valid).any()
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0,
+                               atol=FLOW_ATOL)
+
+
+def test_cuda_path_takes_radius_8_and_10_only():
+    assert tk.RADIUS == {8, 10}
+    for r in (8, 10):
+        tk._check_cuda(r, 10)
+    for r in (7, 9, 11):
+        with pytest.raises(ValueError):
+            tk._check_cuda(r, 10)
+
+
 def test_track_wrapper_runs_plain_on_cpu_without_launching():
     img0, img1 = _pair(shift=(2.0, 1.0), seed=23, H=120, W=160)
     T = torch.tensor

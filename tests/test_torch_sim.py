@@ -1,15 +1,20 @@
 """Port parity: the simulator. The same arguments give the JAX package's
 sequence (trajectory, exact IMU plus noise, landmarks), its rendered
-images and its feature-domain frames, to float64 rounding."""
+images and depth, its feature-domain frames, to float64 rounding, and
+its dynamic scene: the same objects, masks, 3D boxes and disparity, and
+uint8 images that differ by at most one grey level (the float64 images
+truncate on either side of an integer)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dynamic_vins_tpu.sim import dynamic_scene as jdyn
 from dynamic_vins_tpu.sim import frontend_sim as jfs
 from dynamic_vins_tpu.sim import render as jrender
 from dynamic_vins_tpu.sim import synthetic as jsim
+from dynamic_vins_tpu_torch.sim import dynamic_scene as tdyn
 from dynamic_vins_tpu_torch.sim import frontend_sim as tfs
 from dynamic_vins_tpu_torch.sim import render as trender
 from dynamic_vins_tpu_torch.sim import synthetic as tsim
@@ -82,3 +87,45 @@ def test_feature_frames_and_imu_intervals_match():
     est = np.stack([np.asarray(sj.gt_p[k]) + 0.01 for k in range(4)])
     assert tfs.ate_rmse(est, st.gt_p.numpy()) == pytest.approx(
         jfs.ate_rmse(est, np.asarray(sj.gt_p)), rel=1e-12)
+
+
+def test_rendered_depth_matches():
+    sj, st = _seqs(num_frames=2, imu_hz=200.0, num_landmarks=80, seed=6)
+    rj, rt = jrender.small_rig(0.5, jnp.float64), trender.small_rig(0.5)
+    for cam in (0, 1):
+        a = np.asarray(jrender.render_depth(rj, sj.gt_p[1], sj.gt_q[1],
+                                            sj.landmarks, cam=cam))
+        b = trender.render_depth(rt, st.gt_p[1], st.gt_q[1], st.landmarks,
+                                 cam=cam).numpy()
+        np.testing.assert_array_equal(np.isfinite(b), np.isfinite(a))
+        assert np.isfinite(a).sum() > 100
+        np.testing.assert_allclose(b[np.isfinite(b)], a[np.isfinite(a)],
+                                   rtol=0, atol=TOL)
+
+
+def test_dynamic_scene_matches():
+    sj, st = _seqs(num_frames=3, imu_hz=200.0, num_landmarks=100, seed=5)
+    sj = sj._replace(rig=jrender.small_rig(0.5, jnp.float64))
+    st = st._replace(rig=trender.small_rig(0.5))
+    fj, oj = jdyn.make_dynamic_scene(sj, num_objects=2, seed=5)
+    ft, ot = tdyn.make_dynamic_scene(st, num_objects=2, seed=5)
+    for a, b in zip(oj, ot):
+        assert a.track_id == b.track_id
+        for name in ("dims_xyz", "q_wo", "gt_p", "tex_pts", "tex_inten"):
+            np.testing.assert_allclose(getattr(b, name), getattr(a, name),
+                                       rtol=0, atol=TOL, err_msg=name)
+    for a, b in zip(fj, ft):
+        assert len(a.seg.masks) == len(b.seg.masks) == 2
+        np.testing.assert_array_equal(b.seg.masks, a.seg.masks)
+        np.testing.assert_array_equal(b.seg.labels, a.seg.labels)
+        np.testing.assert_allclose(b.disparity, a.disparity, rtol=0,
+                                   atol=1e-5)
+        for ba, bb in zip(a.boxes3d, b.boxes3d):
+            assert bb.class_name == ba.class_name
+            np.testing.assert_allclose(bb.bottom_center, ba.bottom_center,
+                                       rtol=0, atol=TOL)
+            np.testing.assert_allclose(bb.dims, ba.dims, rtol=0, atol=TOL)
+            assert abs(bb.yaw - ba.yaw) < TOL
+        for x, y in ((a.img_left, b.img_left), (a.img_right, b.img_right)):
+            assert y.dtype == np.uint8
+            assert np.abs(y.astype(int) - x.astype(int)).max() <= 1

@@ -3,12 +3,14 @@
 On the CPU: the steps run eagerly through StepGraph, leave their inputs
 as they were, and issue no operation that would synchronize with the
 host (which stream capture refuses) outside the `host_synced` calls;
-a dispatch mode stands in for the capture and counts the segments.
+a dispatch mode stands in for the capture and counts the segments. The
+object BA step (DYNAMIC) has no `host_synced` call at all: one graph.
 
 On the card (`gpu` marker; skips without one): a replay of each
 branch's chain equals the eager step on the same inputs (masks
 identical, positions within 1e-6 m, float64), for the sequential and
-the pipelined step, and every steady frame was one replay. This file
+the pipelined step, and every steady frame was one replay; a replay of
+the object step equals its eager run within 1e-9 (float64). This file
 imports no JAX, so the card's machine runs it as
 
     python -m pytest tests/test_torch_step_graph.py -m gpu --noconftest
@@ -22,6 +24,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
 from dynamic_vins_tpu_torch.estimator import step_check
+from dynamic_vins_tpu_torch.estimator.instance_manager import (
+    InstanceConfig, InstanceManager, solve_layouts)
 from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
                                                         EstimatorConfig)
 from dynamic_vins_tpu_torch.sim import frontend_sim, synthetic as sim
@@ -163,3 +167,85 @@ def test_replay_equals_eager_step(cuda_device, pipelined):
         assert agree["masks_equal"], (key, agree)
         assert agree["pos_m"] <= POS_ATOL, (key, agree)
         assert agree["prior_rel"] <= 1e-6, (key, agree)
+
+
+def _object_run(device, frames=5):
+    """An instance manager (window 5, 4 slots) over a box 8 m ahead of a
+    static stereo rig (left camera at the origin looking along +z,
+    right camera 0.11 m along x), moving at 1 m/s along x, 24 surface
+    points, stereo features and noisy extra points a frame; the object
+    step runs every frame. Returns (manager, the inputs of the step's
+    last eager run)."""
+    rng = np.random.default_rng(0)
+    im = InstanceManager(InstanceConfig(num_frames=5, max_objects=4),
+                         device=device)
+    dims = np.array([4.0, 2.0, 1.5])
+    pts_obj = rng.uniform(-0.5, 0.5, size=(24, 3)) * dims
+    times = np.arange(5) * 0.1
+    ident = np.array([1.0, 0, 0, 0])
+    p_bc = [np.zeros(3), np.array([0.11, 0.0, 0.0])]
+    p_cw = np.stack([np.stack([-p for p in p_bc])] * 5)
+    q_cw = np.tile(ident, (5, 2, 1))
+    graph, calls = im.solve_graph, []
+    fn = graph.fn
+
+    def recorded(key, inputs):
+        calls.append(pytree.tree_map(torch.clone, inputs))
+        return fn(key, inputs)
+
+    graph.fn = recorded
+    for k in range(frames):
+        center = np.array([-1.0 + 1.0 * times[k], 0.3, 8.0])
+        pw = pts_obj + center
+        feats = {}
+        for i, x in enumerate(pw):
+            feats[i] = (np.array([x[0] / x[2], x[1] / x[2], 1.0]),
+                        np.array([(x[0] - 0.11) / x[2], x[1] / x[2], 1.0]))
+        inst = {3: dict(cls=2, features=feats, dims_det=dims, q_det=ident,
+                        extra_pts_world=pw + rng.normal(scale=0.02,
+                                                        size=pw.shape))}
+        im.push_frame(k, inst, np.zeros(3), ident, p_bc[0], ident)
+        im.propagate_pose(k, times)
+        im.initialize_instances(k)
+        im.triangulate(k, np.zeros(3), ident, p_bc[0], ident,
+                       (p_bc[1], ident))
+        im.init_velocity(k, times)
+        im.classify_motion(k, times)
+        im.optimize(times, p_cw, q_cw)
+        im.manage()
+    out = im.output()
+    assert 3 in out and np.isfinite(out[3]["p"]).all()
+    # on the card the step function runs only to capture (warm-up and
+    # capture), then the graph replays
+    assert len(calls) == (2 if graph.on_card else frames)
+    return im, calls[-1]
+
+
+def test_object_step_is_capturable():
+    """The object BA (vmapped jacfwd LM, Cholesky without a host check)
+    makes no host synchronization and leaves its inputs untouched."""
+    im, inputs = _object_run("cpu")
+    before = pytree.tree_map(torch.clone, inputs)
+    probe, chain = _SyncProbe(), _FakeChain()
+    token = step_graph._CAPTURE.set(chain)
+    try:
+        with probe:
+            out = im.solve_graph.fn(0, inputs)
+    finally:
+        step_graph._CAPTURE.reset(token)
+    assert probe.seen == []
+    assert chain.calls == []
+    assert out.shape == (solve_layouts(im.cfg)[2].size,)
+    for a, b in zip(pytree.tree_leaves(before), pytree.tree_leaves(inputs)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_object_step_replay_equals_eager(cuda_device):
+    im, _ = _object_run(cuda_device)
+    graph = im.solve_graph
+    assert graph.replays[0] == 5
+    assert graph.segments(0) == 1 and graph.host_syncs(0) == 0
+    eager = graph.fn(0, graph.inputs)
+    replay = graph.replay(0).clone()
+    torch.testing.assert_close(replay, eager, rtol=0, atol=1e-9)
