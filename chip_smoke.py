@@ -59,6 +59,25 @@ Phases (any failure exits non-zero before the result lines):
      tests/test_dynamic_rendered.py); a non-empty KITTI-MOT file. Prints
      ms/frame, stage means, peak memory, and the object solve eager
      against its replay.
+ 10. naive-pipelined: phase 8 with `VioConfig.pipelined`: no tracked
+     point inside the rectangle, two track launches a frame, one
+     pipelined-step replay every steady frame.
+ 11. dynamic-pipelined: phase 9 with `VioConfig.pipelined` and its
+     gates; also every input frame has an output once drained, in
+     order, and one pipelined-step replay every steady frame. Prints
+     its ms/frame beside phase 9's.
+ 12. cli: the slice's scene written as an EuRoC tree (cam0/cam1 CSV and
+     PNGs through the port's encoder, imu0, ground truth, a text
+     config) and run through `run.main(["--dataset", "euroc", ...])` in
+     this process; then the dynamic scene as a KITTI tracking tree
+     (PNGs, SOLO `.pt` tensors, FCOS3D txt, 16-bit disparity PNGs,
+     ground-truth labels) run with `--slam dynamic` (no IMU). Gates: the
+     decoded images equal the written bytes (and the disparity and
+     segmentation read back equal), launch and replay counts as in
+     phases 4 and 9, aligned ATE < 0.20 m, a non-empty MOT file. Prints
+     the decode ms a frame and CLEAR-MOT against the labels (MOTA, ID
+     switches, track ids). The CLI's estimator runs in float64 (the
+     System's default).
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -622,11 +641,12 @@ def make_dynamic(torch, dev, seq, sigma=BLOB_SIGMA_PX):
         seq, num_objects=N_OBJECTS, seed=SEED, sigma=sigma, device=dev)
 
 
-def run_dynamic(torch, dev, seq, dframes, objs, imus):
+def run_dynamic(torch, dev, seq, dframes, objs, imus, pipelined=False):
     """The DYNAMIC System over the dynamic scene's frames on its default
-    path; counts set to 0 just before the frames and read just after.
-    Fails on a count or a gate (module docstring, phase 9); returns the
-    kernel launches and the object solve's step graph."""
+    path (or pipelined); counts set to 0 just before the frames and read
+    just after. Fails on a count or a gate (module docstring, phases 9
+    and 11); returns the kernel launches, the object solve's step graph
+    and the steady ms/frame."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.io.writers import read_mot
@@ -636,15 +656,18 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
     from dynamic_vins_tpu_torch.system import FrameInput, System
     from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
 
-    name = "dynamic"
+    name = "dynamic-pipelined" if pipelined else "dynamic"
     cfg = slice_config(seq.rig, VioConfig())
     cfg.slam = SlamMode.DYNAMIC
-    prefix = REPO / "output" / "chip_smoke_dynamic"
+    cfg.pipelined = pipelined
+    prefix = REPO / "output" / f"chip_smoke_{name}"
     system = System(cfg, output_prefix=str(prefix), device=dev,
                     dtype=torch.float32)
     est, it = system.estimator, system.inst_tracker
     solve = est.im.solve_graph
-    print(f"{name}: {seq.rig.width}x{seq.rig.height} stereo+IMU DYNAMIC, "
+    step = est._pipe if pipelined else est._mega
+    print(f"{name}: {seq.rig.width}x{seq.rig.height} stereo+IMU DYNAMIC"
+          f"{' pipelined' if pipelined else ''}, "
           f"{N_OBJECTS} objects, window {cfg.window_size}, max_cnt "
           f"{cfg.max_cnt}, instance rows {it.cfg.max_instances} x "
           f"{it.cfg.max_dynamic_cnt} (LK radius {it.cfg.radius}, "
@@ -667,7 +690,7 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(K, [est._mega, solve])
+    reset_counts(K, [step, solve])
     outs, solves_a_frame, frame_ms = [], [], []
     inst_frames = 0
     for k, df in enumerate(dframes):
@@ -684,10 +707,12 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
         frame_ms.append(1e3 * (time.perf_counter() - t0))
         solves_a_frame.append(sum(solve.replays.values()) - before)
         inst_frames += bool(len(df.seg.masks))
-        outs.append(out)
+        if out is not None or not pipelined:
+            outs.append(out)
         if k > 2 and int(system.tracker.valid.sum()) < 30:
             fail(f"{name}, frame {k}: only "
                  f"{int(system.tracker.valid.sum())} features")
+    outs += system.drain()
     inst = est.get_instance_states()
     torch.cuda.synchronize()
     steady_ms = 1e3 * (time.perf_counter() - t_steady) / (FRAMES
@@ -695,14 +720,15 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
     launches = dict(lk_level=K.launches, plain_levels=K.plain_levels,
                     **{f"lk_track_r{r}": n for r, n
                        in K.track_launches_by_radius.items()})
-    replays = sum(est._mega.replays.values())
+    replays = sum(step.replays.values())
     steady = sum(steady_calls)
     stages = system.close()
     peak = torch.cuda.max_memory_allocated() / 2**20
     want = dict(lk_level=0, plain_levels=0, lk_track_r8=2 * inst_frames,
                 lk_track_r10=2 * FRAMES)
     print(f"{name}: kernel launches {json.dumps(launches)} ({inst_frames} "
-          f"frames with instances), megastep replays {replays} for {steady} "
+          f"frames with instances), {'pipelined-step' if pipelined else 'megastep'}"
+          f" replays {replays} for {steady} "
           f"steady frames, object-solve replays a frame "
           f"{json.dumps(solves_a_frame)} (segments "
           f"{solve.segments(0) if solve.chains else 0}, host syncs "
@@ -711,12 +737,14 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
         fail(f"{name}: LK launches {launches}, expected {want}")
     if replays != steady or max(solves_a_frame) > 1 \
             or sum(solves_a_frame) == 0:
-        fail(f"{name}: {replays} megastep replays for {steady} steady "
+        fail(f"{name}: {replays} step replays for {steady} steady "
              f"frames, object-solve replays a frame {solves_a_frame}")
-    if any(o is None for o in outs) or est.failed or not all(
+    if any(o is None for o in outs) or [o.timestamp for o in outs] != \
+            [float(t) for t in seq.frame_times] or est.failed or not all(
             np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
             for o in outs):
-        fail(f"{name}: missing or non-finite output, or estimator failure")
+        fail(f"{name}: not one output a frame in order, a non-finite "
+             f"output, or estimator failure")
     p = np.stack([o.p for o in outs])
     ate = frontend_sim.ate_rmse(p, seq.gt_p.numpy())
     errs = {tid: min(float(np.linalg.norm(o.gt_p[-1] - s["p"]))
@@ -740,7 +768,286 @@ def run_dynamic(torch, dev, seq, dframes, objs, imus):
              f"object's truth: {errs}")
     if not rows:
         fail(f"{name}: the KITTI-MOT file is empty")
-    return dict(launches=launches, solve=solve)
+    return dict(launches=launches, solve=solve, steady_ms=steady_ms)
+
+
+def write_config(path, cfg: dict):
+    """A flat YAML config as a user writes one: `key: value` lines, lists
+    in flow style, floats with a point and a signed exponent (so a YAML
+    1.1 reader types them as floats)."""
+    def scalar(v):
+        return f"{v:.12e}" if isinstance(v, float) else str(v)
+
+    Path(path).write_text("".join(
+        f"{k}: " + ("[" + ", ".join(scalar(float(x)) for x in v) + "]"
+                    if isinstance(v, (list, tuple)) else scalar(v)) + "\n"
+        for k, v in cfg.items()))
+
+
+def run_cli(torch, name, argv, frames):
+    """`run.main(argv)` in this process, with the System it builds
+    recorded (the estimator's steady calls, object-solve replays a
+    call); every count set to 0 just before and read just after. Fails
+    unless the run returns 0; returns (System, launches, ms/frame)."""
+    from dynamic_vins_tpu_torch import run
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+
+    made = []
+
+    class Recorded(run.System):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            self.steady_calls, self.solves = [], []
+            est = self.estimator
+            process_frame = est.process_frame
+
+            def counted(frame, imu=None, instances=None):
+                self.steady_calls.append(
+                    est.initialized
+                    and est.frame_count == est.cfg.num_frames - 1)
+                return process_frame(frame, imu, instances=instances)
+
+            est.process_frame = counted
+
+        def process(self, fi):
+            im = self.estimator.im
+            before = sum(im.solve_graph.replays.values()) if im else 0
+            out = super().process(fi)
+            if im is not None:
+                self.solves.append(sum(im.solve_graph.replays.values())
+                                   - before)
+            return out
+
+    print(f"{name}: python -m dynamic_vins_tpu_torch.run "
+          f"{' '.join(argv)}", flush=True)
+    orig, run.System = run.System, Recorded
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        reset_counts(K, [])
+        t0 = time.perf_counter()
+        rc = run.main(argv)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / frames
+    finally:
+        run.System = orig
+    if rc != 0 or len(made) != 1:
+        fail(f"{name}: run.main returned {rc} ({len(made)} Systems)")
+    launches = dict(lk_level=K.launches, plain_levels=K.plain_levels,
+                    **{f"lk_track_r{r}": n for r, n
+                       in K.track_launches_by_radius.items()})
+    return made[0], launches, ms
+
+
+def cli_phase(torch, seq, imgs, dframes, objs):
+    """Phase 12: the slice's scene as an EuRoC tree and the dynamic scene
+    as a KITTI tracking tree, written through the port's encoder, run
+    through the CLI (module docstring)."""
+    import shutil
+
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.geometry import lie_np
+    from dynamic_vins_tpu_torch.io import eval_tools, image_io, perception
+    from dynamic_vins_tpu_torch.io.evaluation import ate_rmse
+    from dynamic_vins_tpu_torch.io.writers import read_mot, read_tum
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    root = REPO / "output" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    rig = seq.rig
+    base = slice_config(rig, VioConfig())
+    rig_cfg = dict(image_width=rig.width, image_height=rig.height,
+                   intrinsics_left=base.intrinsics_left,
+                   intrinsics_right=base.intrinsics_left,
+                   body_T_cam0=base.body_T_cam0,
+                   body_T_cam1=base.body_T_cam1)
+    ft = seq.frame_times.numpy()
+    u8 = lambda a: np.clip(np.asarray(a), 0, 255).astype(np.uint8)
+
+    def decoded_equal(name, pairs):
+        """Decode every (path, bytes) pair; fail unless equal; ms a
+        frame (both cameras), after one decode that builds the C
+        unfilter at first use (its ms printed apart)."""
+        t0 = time.perf_counter()
+        image_io.imread(pairs[0][0], "grey")
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = [image_io.imread(path, "grey") for path, _ in pairs]
+        ms = 1e3 * (time.perf_counter() - t0) / (len(pairs) / 2)
+        bad = sum(not np.array_equal(g, want)
+                  for g, (_, want) in zip(got, pairs))
+        if bad:
+            fail(f"{name}: {bad} decoded images differ from the written "
+                 f"bytes")
+        print(f"{name}: the first decode took {first_ms:.2f} ms (the C "
+              f"unfilter builds at first use)", flush=True)
+        return ms
+
+    # ---- EuRoC: RAW stereo+IMU ----------------------------------------
+    t0 = time.perf_counter()
+    eu = root / "euroc" / "mav0"
+    pairs = []
+    for c, cam in enumerate(("cam0", "cam1")):
+        (eu / cam / "data").mkdir(parents=True)
+        rows = ["#timestamp [ns],filename"]
+        for k in range(FRAMES):
+            ns = int(round(ft[k] * 1e9))
+            path = eu / cam / "data" / f"{ns}.png"
+            image_io.imwrite(path, u8(imgs[k][c]))
+            pairs.append((path, u8(imgs[k][c])))
+            rows.append(f"{ns},{ns}.png")
+        (eu / cam / "data.csv").write_text("\n".join(rows) + "\n")
+    it, acc, gyr = (seq.imu_times.numpy(), seq.acc.numpy(),
+                    seq.gyr.numpy())
+    (eu / "imu0").mkdir()
+    (eu / "imu0" / "data.csv").write_text(
+        "#timestamp,w_x,w_y,w_z,a_x,a_y,a_z\n" + "".join(
+            f"{int(round(it[i] * 1e9))},{gyr[i, 0]},{gyr[i, 1]},"
+            f"{gyr[i, 2]},{acc[i, 0]},{acc[i, 1]},{acc[i, 2]}\n"
+            for i in range(len(it))))
+    gp, gq = seq.gt_p.numpy(), seq.gt_q.numpy()
+    (eu / "state_groundtruth_estimate0").mkdir()
+    (eu / "state_groundtruth_estimate0" / "data.csv").write_text(
+        "#timestamp,p,q\n" + "".join(
+            f"{int(round(ft[k] * 1e9))},{gp[k, 0]},{gp[k, 1]},"
+            f"{gp[k, 2]},{gq[k, 0]},{gq[k, 1]},{gq[k, 2]},"
+            f"{gq[k, 3]}\n" for k in range(FRAMES)))
+    write_config(root / "euroc.yaml", dict(rig_cfg, dataset="euroc",
+                                           slam="raw", imu=1))
+    write_s = time.perf_counter() - t0
+    dec_ms = decoded_equal("cli-euroc", pairs)
+    out = str(root / "euroc_run")
+    system, launches, ms = run_cli(
+        torch, "cli-euroc", ["--dataset", "euroc", "--root",
+                             str(root / "euroc"), "--config",
+                             str(root / "euroc.yaml"), "--output", out],
+        FRAMES)
+    est = system.estimator
+    replays = sum(est._mega.replays.values())
+    steady = sum(system.steady_calls)
+    t_est, p_est, _ = read_tum(out + "_ego_tum.txt")
+    ate = ate_rmse(t_est, p_est, ft, gp, align=True)
+    print(f"cli-euroc: wrote the tree in {write_s:.2f} s; decode "
+          f"{dec_ms:.3f} ms a frame (2 PNGs {rig.width}x{rig.height}, "
+          f"equal to the written bytes); kernel launches "
+          f"{json.dumps(launches)}, megastep replays {replays} for "
+          f"{steady} steady frames, estimator dtype {est.dtype}; "
+          f"{len(t_est)} poses, aligned ATE {ate:.4f} m (gate "
+          f"{ATE_GATE_M} m); {ms:.2f} ms/frame over the whole run "
+          f"(graph captures included)", flush=True)
+    want = dict(lk_level=0, plain_levels=0, lk_track_r8=0,
+                lk_track_r10=2 * FRAMES)
+    if launches != want or replays != steady or not steady:
+        fail(f"cli-euroc: launches {launches} (expected {want}), "
+             f"{replays} replays for {steady} steady frames")
+    if len(t_est) != FRAMES or not np.isfinite(p_est).all() \
+            or not ate < ATE_GATE_M:
+        fail(f"cli-euroc: {len(t_est)} poses, aligned ATE {ate} m")
+    total = dict(launches)
+
+    # ---- KITTI tracking: DYNAMIC, no IMU, offline artifacts ----------
+    t0 = time.perf_counter()
+    ki = root / "kitti"
+    left, right = ki / "image_02" / "0000", ki / "image_03" / "0000"
+    arts = {d: ki / d / "0000" for d in ("seg", "det3d", "disp")}
+    for d in (left, right, *arts.values(), ki / "label_02"):
+        d.mkdir(parents=True)
+    pairs, gt_lines, inst_frames = [], [], 0
+    p_bc, q_bc = rig.p_bc.numpy(), rig.q_bc.numpy()
+    for k, df in enumerate(dframes):
+        name = f"{k:06d}"
+        for d, img in ((left, df.img_left), (right, df.img_right)):
+            image_io.imwrite(d / f"{name}.png", u8(img))
+            pairs.append((d / f"{name}.png", u8(img)))
+        perception.write_solo_seg_pt(str(arts["seg"]), name, df.seg)
+        perception.write_fcos3d_txt(str(arts["det3d"] / f"{name}.txt"),
+                                    df.boxes3d)
+        perception.write_disparity_png(str(arts["disp"] / f"{name}.png"),
+                                       df.disparity)
+        inst_frames += bool(len(df.seg.masks))
+        # ground-truth labels: each box's object by its camera-frame
+        # centre (the scene drops objects out of view)
+        p_wc, q_wc = lie_np.pose_compose(gp[k], gq[k], p_bc, q_bc)
+        p_cw, q_cw = lie_np.pose_inverse(p_wc, q_wc)
+        cams = [lie_np.pose_transform_point(p_cw, q_cw, o.gt_p[k])
+                for o in objs]
+        for m, b3 in zip(df.seg.masks, df.boxes3d):
+            tid = objs[int(np.argmin([np.linalg.norm(c - b3.center)
+                                      for c in cams]))].track_id
+            ys, xs = np.nonzero(m)
+            h, w, l = b3.dims[1], b3.dims[2], b3.dims[0]
+            x, y, z = b3.bottom_center
+            gt_lines.append(
+                f"{k} {tid} Car 0 0 0 {xs.min()} {ys.min()} {xs.max()} "
+                f"{ys.max()} {h:.4f} {w:.4f} {l:.4f} {x:.4f} {y:.4f} "
+                f"{z:.4f} {b3.yaw:.4f}")
+    labels = ki / "label_02" / "0000.txt"
+    labels.write_text("\n".join(gt_lines) + "\n")
+    write_config(root / "kitti.yaml", dict(rig_cfg, dataset="kitti",
+                                           slam="dynamic", imu=0))
+    write_s = time.perf_counter() - t0
+    dec_ms = decoded_equal("cli-kitti", pairs)
+    for k, df in enumerate(dframes):
+        name = f"{k:06d}"
+        disp = perception.read_disparity_png(str(arts["disp"]
+                                                 / f"{name}.png"))
+        seg = perception.read_solo_seg_pt(str(arts["seg"]), name)
+        q = np.clip(df.disparity * np.float32(256), 0, 65535).astype(
+            np.uint16).astype(np.float32) / 256
+        if not (np.array_equal(disp, q)
+                and np.array_equal(seg.masks, df.seg.masks)):
+            fail(f"cli-kitti, frame {k}: the disparity or segmentation "
+                 f"read back differs from what was written")
+    out = str(root / "kitti_run")
+    system, launches, ms = run_cli(
+        torch, "cli-kitti", ["--dataset", "kitti", "--left", str(left),
+                             "--right", str(right), "--seg-dir",
+                             str(arts["seg"]), "--det3d-dir",
+                             str(arts["det3d"]), "--disp-dir",
+                             str(arts["disp"]), "--config",
+                             str(root / "kitti.yaml"), "--slam", "dynamic",
+                             "--output", out], FRAMES)
+    est = system.estimator
+    replays = sum(est._mega.replays.values())
+    steady = sum(system.steady_calls)
+    t_est, p_est, _ = read_tum(out + "_ego_tum.txt")
+    t_gt = np.arange(FRAMES) * 0.1          # the reader's 10 Hz stamps
+    ate = ate_rmse(t_est, p_est, t_gt, gp, align=True)
+    rows = read_mot(out + "_mot.txt")
+    mot = eval_tools.clear_mot(eval_tools.read_mot_file(str(labels)),
+                               eval_tools.read_mot_file(out + "_mot.txt"))
+    print(f"cli-kitti: wrote the tree in {write_s:.2f} s; decode "
+          f"{dec_ms:.3f} ms a frame (2 PNGs, equal to the written bytes; "
+          f"disparity and segmentation read back equal); kernel launches "
+          f"{json.dumps(launches)} ({inst_frames} frames with instances), "
+          f"megastep replays {replays} for {steady} steady frames, "
+          f"object-solve replays a call {json.dumps(system.solves)}, "
+          f"estimator dtype {est.dtype} without IMU; {len(t_est)} poses, "
+          f"aligned ATE {ate:.4f} m (gate {ATE_GATE_M} m); "
+          f"{ms:.2f} ms/frame over the whole run", flush=True)
+    print(f"cli-kitti: CLEAR-MOT against the ground-truth labels (2D IoU "
+          f">= 0.5): MOTA {mot.mota:.4f}, MOTP {mot.motp:.4f}, ID switches "
+          f"{mot.id_switches}, FP {mot.fp}, FN {mot.fn}, matches "
+          f"{mot.matches} of {mot.gt_total}; {len(rows)} MOT rows, "
+          f"{len({r['tid'] for r in rows})} track ids for {len(objs)} "
+          f"objects", flush=True)
+    want = dict(lk_level=0, plain_levels=0, lk_track_r8=2 * inst_frames,
+                lk_track_r10=2 * FRAMES)
+    if launches != want or replays != steady or not steady \
+            or max(system.solves) > 1 or not sum(system.solves):
+        fail(f"cli-kitti: launches {launches} (expected {want}), "
+             f"{replays} replays for {steady} steady frames, object-solve "
+             f"replays a call {system.solves}")
+    if len(t_est) != FRAMES or not np.isfinite(p_est).all() \
+            or not ate < ATE_GATE_M:
+        fail(f"cli-kitti: {len(t_est)} poses, aligned ATE {ate} m")
+    if not rows:
+        fail("cli-kitti: the KITTI-MOT file is empty")
+    for key, n in launches.items():
+        total[key] += n
+    return total
 
 
 def solve_times(torch, graph):
@@ -899,26 +1206,43 @@ def main():
     print("slice: megastep eager vs replay (ms, float32, CUDA events):",
           json.dumps(step_times(torch, seqr.pop("graph"))), flush=True)
     graph_check_phase(torch, dev, seq)
-    p_pipe = run_slice(torch, dev, seq, imgs, imus, "pipelined",
-                       pipelined=True)["p"]
+    pipe = run_slice(torch, dev, seq, imgs, imus, "pipelined",
+                     pipelined=True)
+    p_pipe = pipe["p"]
     # float32 on the card: no gate (see the module docstring)
     print(f"pipelined: max |p - p_sequential| "
           f"{float(abs(p_pipe - seqr['p']).max()):.3e} m (float32)",
           flush=True)
-    run_slice(torch, dev, seq, imgs, imus, "multi-dispatch",
-              frames=MULTI_FRAMES, use_megastep=False)
+    multi = run_slice(torch, dev, seq, imgs, imus, "multi-dispatch",
+                      frames=MULTI_FRAMES, use_megastep=False)
     import numpy as np
 
     mask = np.zeros((seq.rig.height, seq.rig.width), bool)
     mask[120:360, 250:500] = True    # a fixed "dynamic" rectangle
-    run_slice(torch, dev, seq, imgs, imus, "naive", frames=NAIVE_FRAMES,
-              dynamic_mask=mask)
+    naive = run_slice(torch, dev, seq, imgs, imus, "naive",
+                      frames=NAIVE_FRAMES, dynamic_mask=mask)
     dyn = run_dynamic(torch, dev, seq, dframes, objs, imus)
     print("dynamic: object solve eager vs replay (ms, float32, CUDA "
           "events):", json.dumps(solve_times(torch, dyn["solve"])),
           flush=True)
-    launches = dict(seqr["launches"],
-                    lk_track_r8=dyn["launches"]["lk_track_r8"])
+    naive_pipe = run_slice(torch, dev, seq, imgs, imus, "naive-pipelined",
+                           frames=NAIVE_FRAMES, pipelined=True,
+                           dynamic_mask=mask)
+    dyn_pipe = run_dynamic(torch, dev, seq, dframes, objs, imus,
+                           pipelined=True)
+    print(f"dynamic-pipelined: steady ms/frame {dyn_pipe['steady_ms']:.2f}"
+          f" against the sequential DYNAMIC phase's "
+          f"{dyn['steady_ms']:.2f}", flush=True)
+    cli = cli_phase(torch, seq, imgs, dframes, objs)
+    # launches of every main-path phase (4, 6-12), each counted from 0
+    launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
+    for r in (seqr, pipe, multi, naive, naive_pipe):
+        launches["lk_level"] += r["launches"]["lk_level"]
+        launches["lk_track"] += r["launches"]["lk_track"]
+    for r in (dyn["launches"], dyn_pipe["launches"], cli):
+        launches["lk_level"] += r["lk_level"]
+        launches["lk_track"] += r["lk_track_r10"]
+        launches["lk_track_r8"] += r["lk_track_r8"]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda",
         source="dynamic_vins_tpu_torch/csrc/lk_level.cu",

@@ -590,10 +590,6 @@ class Estimator:
                 raise NotImplementedError(
                     f"EstimatorConfig.{name} is not ported yet: ROADMAP "
                     f"{item}")
-        if config.dynamic and config.pipelined:
-            raise NotImplementedError(
-                "pipelined DYNAMIC is not ported yet: ROADMAP queue 1 "
-                "item 15b (pipelined NAIVE/DYNAMIC)")
         if config.stereo is False and config.use_imu:
             raise NotImplementedError(
                 "mono+IMU initialization is not ported yet: ROADMAP "
@@ -658,6 +654,8 @@ class Estimator:
         self._pipe_res = None
         self._pipe_q = deque()
         self._pipe_tri_hist = deque(maxlen=2)
+        # pipelined: the timestamps of the host mirror's window slots
+        self._pipe_state_ts = None
         # StageTimer for the steady state's stages (be.*), or None
         self.timer = None
         # per-object backend (DYNAMIC), in the estimator's dtype
@@ -766,7 +764,8 @@ class Estimator:
 
         if cfg.use_megastep and self.initialized and k == F - 1:
             if cfg.pipelined:
-                return self._megastep_frame_pipelined(is_keyframe)
+                return self._megastep_frame_pipelined(is_keyframe,
+                                                      instances)
             self._megastep_frame(is_keyframe, instances=instances)
             out = self._output(k)
             self._slide(is_keyframe)
@@ -911,11 +910,16 @@ class Estimator:
              self._i(fm.has_obs.copy()), self._i(fm.has_right.copy())))
         self._pipe_q.clear()
         self._pipe_tri_hist.clear()
+        # at mode entry the mirror is fresh: its slots hold the solved
+        # frames at the current timestamps
+        self._pipe_state_ts = self.timestamps.copy()
 
-    def _megastep_frame_pipelined(self, is_keyframe: bool):
+    def _megastep_frame_pipelined(self, is_keyframe: bool, instances=None):
         """Dispatch this frame's step against the device residents, after
         draining the oldest in-flight frame if 2 are; returns that
-        frame's output (its own timestamp) or None."""
+        frame's output (its own timestamp) or None. In DYNAMIC mode the
+        per-object pipeline then runs while the step is in flight, and
+        the object tables slide with the host's window."""
         k = self.cfg.num_frames - 1
         fl, il, ol = self._consts.pipe_layouts()
         if self._pipe_res is None:
@@ -938,7 +942,15 @@ class Estimator:
                 is_keyframe, (slot.f, slot.i, self._pipe_res))
             self._pipe_io.send(slot, dev_out)
         self._pipe_q.append((slot, float(self.timestamps[k]),
-                             bool(is_keyframe)))
+                             bool(is_keyframe), self.timestamps.copy()))
+        if self.im is not None:
+            if instances is not None:
+                self._process_instances_pipelined(instances)
+            # the object tables follow the host's window, not the mirror
+            if is_keyframe:
+                self.im.slide_window()
+            else:
+                self.im.slide_window_new()
         self._slide_host_only(is_keyframe)
         return out
 
@@ -1007,7 +1019,7 @@ class Estimator:
         fm = self.fm
         F = self.cfg.num_frames
         ol = self._consts.pipe_layouts()[2]
-        slot, t_k, was_kf = self._pipe_q.popleft()
+        slot, t_k, was_kf, ts_win = self._pipe_q.popleft()
         ob = self._pipe_io.result(slot)
         if not np.isfinite(float(ol.get(ob, "cost")[0])):
             self.failed = True
@@ -1015,13 +1027,16 @@ class Estimator:
         st3 = layout.WindowState.unpack(ol.get(ob, "flat").copy(), F)
         out = OdometryOut(timestamp=t_k, p=st3.p[F - 1].copy(),
                           q=st3.q[F - 1].copy(), v=st3.v[F - 1].copy())
-        # the mirror: the drained frame's state after its slide
-        for a in (st3.p, st3.q, st3.v, st3.ba, st3.bg):
+        # the mirror: the drained frame's state after its slide, and the
+        # timestamps of its slots (the instance pipeline aligns by them)
+        ts_m = ts_win.copy()
+        for a in (st3.p, st3.q, st3.v, st3.ba, st3.bg, ts_m):
             if was_kf:
                 a[:-1] = a[1:].copy()
             else:
                 a[F - 2] = a[F - 1]
         self.state = st3
+        self._pipe_state_ts = ts_m
         # landmark mirrors are slot-indexed: the slide does not move them
         fm.inv_depth[:] = ol.get(ob, "inv")
         fm.depth_valid[:] = (ol.get(ob, "dv") > 0.5) & fm.active
@@ -1357,14 +1372,71 @@ class Estimator:
             v = v + un_acc * dt
         return p, q, v
 
-    def _process_instances(self, k, instances, ego_override=None):
+    def _aligned_window_poses(self):
+        """Pipelined: window poses aligned to the host's timestamps while
+        the state mirror lags the dispatched frames. A slot whose
+        timestamp the mirror holds takes the mirror's solved pose; the
+        slots after the newest such anchor (the 1-2 frames in flight)
+        are IMU-predicted from it across the raw edge buffers. Returns
+        (p_win [F,3], q_win [F,4]), or None if no slot matched."""
+        F = self.cfg.num_frames
+        st = self.state
+        M_ts = self._pipe_state_ts
+        p_win = np.array(st.p)
+        q_win = np.array(st.q)
+        matched = np.full(F, -1, np.int64)
+        for j in range(F):
+            m = np.flatnonzero(np.abs(M_ts[:F - 1] - self.timestamps[j])
+                               < 1e-9)
+            if m.size:
+                i = int(m[-1])
+                p_win[j] = st.p[i]
+                q_win[j] = st.q[i]
+                matched[j] = i
+        anc = np.flatnonzero(matched >= 0)
+        if not anc.size:
+            return None
+        a = int(anc[-1])
+        i0 = int(matched[a])
+        p, q, v = st.p[i0], st.q[i0], st.v[i0]
+        ba, bg = st.ba[i0], st.bg[i0]
+        for j in range(a + 1, F):
+            p, q, v = self._propagate_edge_host(p, q, v, ba, bg, j - 1)
+            p_win[j] = p
+            q_win[j] = q
+        return p_win, q_win
+
+    def _process_instances_pipelined(self, instances):
+        """The per-object pipeline against the pipelined ego path: the
+        object tables are frame-synchronous with the host's timestamps,
+        the state mirror lags them by up to 2 slides, so the window
+        poses are aligned by timestamp (`_aligned_window_poses`).
+        Without a mirror yet, frame k's pose is IMU-propagated from
+        frame k-1; with no slot aligned, the frame is skipped."""
+        k = self.cfg.num_frames - 1
+        if self._pipe_state_ts is None:
+            self._process_instances(
+                k, instances, ego_override=self._propagate_pose_host(k))
+            return
+        win = self._aligned_window_poses()
+        if win is None:
+            return
+        p_win, q_win = win
+        self._process_instances(k, instances,
+                                ego_override=(p_win[k], q_win[k]),
+                                window_override=win)
+
+    def _process_instances(self, k, instances, ego_override=None,
+                           window_override=None):
         """Per-object pipeline for frame k (estimator.cpp:1577-1622:
         PushBack -> PropagatePose -> Triangulate -> InitialInstance ->
         InitialInstanceVelocity -> SetDynamicOrStatic -> Optimization).
 
         ego_override: (p, q) predicted pose of frame k while its ego
         solve has not landed (the megastep); it also stands in for slot
-        k of the window poses the outlier test and the solve see."""
+        k of the window poses the outlier test and the solve see.
+        window_override: (p_win, q_win) window poses to use instead
+        (pipelined: `_aligned_window_poses`)."""
         with self._st("be.inst"):
             st = self.state
             im = self.im
@@ -1385,11 +1457,15 @@ class Estimator:
             im.init_velocity(k, times)
             im.classify_motion(k, times)
             if self.initialized:
-                p_win = np.array(st.p)
-                q_win = np.array(st.q)
-                if ego_override is not None:
-                    p_win[k] = ego_p
-                    q_win[k] = ego_q
+                if window_override is not None:
+                    p_win, q_win = (np.asarray(window_override[0]),
+                                    np.asarray(window_override[1]))
+                else:
+                    p_win = np.array(st.p)
+                    q_win = np.array(st.q)
+                    if ego_override is not None:
+                        p_win[k] = ego_p
+                        q_win[k] = ego_q
                 p_wc, q_wc = lie_np.pose_compose(
                     p_win[:, None, :], q_win[:, None, :],
                     np.asarray(st.p_bc)[None, :, :],

@@ -104,3 +104,19 @@ def so3_log(R):
     w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
                   R[1, 0] - R[0, 1]]) / (2.0 * np.sin(theta))
     return theta * w
+
+
+def quat_log(q):
+    """Quaternion -> rotation vector, small-angle safe (lie.quat_log)."""
+    q = np.asarray(q, float)
+    q = q / max(np.linalg.norm(q), 1e-8)
+    if q[0] < 0.0:
+        q = -q                                  # shortest arc
+    w, xyz = q[0], q[1:]
+    n = np.linalg.norm(xyz)
+    wc = min(max(w, -1.0), 1.0)
+    if n * n < 1e-12:
+        k = 2.0 / max(wc, 1e-8) * (1.0 - n * n / (3.0 * max(wc * wc, 1e-8)))
+    else:
+        k = 2.0 * np.arctan2(n, wc) / max(n, 1e-8)
+    return k * xyz

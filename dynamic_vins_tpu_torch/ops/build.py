@@ -1,9 +1,10 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each `csrc/<name>.cu` compiles (for sm_90a, plain C entry points, no
-PyTorch headers: a few seconds) into `build/kernels/<name>-<hash>.so`
-at the repository root, keyed by a hash of the source and flags, at
-first use. Nothing is compiled at import time.
+Each `csrc/<name>.cu` compiles with nvcc (for sm_90a, plain C entry
+points, no PyTorch headers: a few seconds), each `csrc/<name>.c` with
+the host C compiler, into `build/kernels/<name>-<hash>.so` at the
+repository root, keyed by a hash of the source and flags, at first use.
+Nothing is compiled at import time.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+HOST_CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -39,26 +41,46 @@ def _nvcc() -> str:
     return found
 
 
+def _host_cc() -> str:
+    for cand in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    raise RuntimeError("no host C compiler (cc, gcc or clang) found: "
+                       "the port's C sources build at first use")
+
+
+def _source(name: str):
+    """(source path, flags) of csrc/<name>.cu or csrc/<name>.c."""
+    cu = CSRC / f"{name}.cu"
+    if cu.exists():
+        return cu, NVCC_FLAGS
+    return CSRC / f"{name}.c", HOST_CC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    digest = hashlib.sha1(src.read_bytes()
+                          + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
 def build(name: str, force: bool = False) -> Path:
-    """Compile csrc/<name>.cu unless an up-to-date library exists (or
-    `force`)."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.c (host compiler)
+    unless an up-to-date library exists (or `force`)."""
     out = library_path(name)
     if out.exists() and not force:
         return out
+    src, flags = _source(name)
+    cc = _nvcc() if src.suffix == ".cu" else _host_cc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True)
+    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
     build_logs[name] = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{build_logs[name]}")
+        raise RuntimeError(f"{Path(cc).name} failed for {name}:\n"
+                           f"{build_logs[name]}")
     os.replace(tmp, out)
     return out
 

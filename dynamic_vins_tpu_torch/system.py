@@ -6,12 +6,12 @@ Built from one `VioConfig` like the JAX package's System, in three
 modes: RAW (stereo+IMU), NAIVE (the background tracker gated by a
 dynamic mask: the frame's `dynamic_mask`, else the union of its instance
 masks) and DYNAMIC (instances segmented, associated by MOT, tracked and
-estimated as moving objects). With `VioConfig.pipelined` (RAW only) the
-frontend runs two frames ahead of the backend and the estimator keeps
-its steady state on the device, so `process` returns the output of an
-earlier frame, or None; `close` drains every frame in flight. Pipelined
-NAIVE/DYNAMIC, lines, online perception, loop closure and the
-multi-device engine are not ported yet and raise.
+estimated as moving objects). With `VioConfig.pipelined` the frontend
+runs two frames ahead of the backend (the instance tracker one frame
+behind its dispatch) and the estimator keeps its steady state on the
+device, so `process` returns the output of an earlier frame, or None;
+`close` drains every frame in flight. Lines, online perception, loop
+closure and the multi-device engine are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -81,10 +81,6 @@ class System:
                  device=None, dtype: torch.dtype = torch.float64):
         """device: CUDA unless "cpu" is asked for; dtype: the
         estimator's float type (the tracker works in float32)."""
-        if cfg.slam != SlamMode.RAW and cfg.pipelined:
-            raise NotImplementedError(
-                f"pipelined slam={cfg.slam.value} is not ported yet: "
-                "ROADMAP queue 1 item 15b (pipelined NAIVE/DYNAMIC)")
         for name, item in _TODO.items():
             if getattr(cfg, name):
                 raise NotImplementedError(
@@ -149,9 +145,11 @@ class System:
             if cfg.slam == SlamMode.DYNAMIC else None
         self.frame_idx = 0
         self._last_dets = {}
+        self._ones_mask = None
         # pipelined frontend: frames dispatched to the tracker and not
-        # collected yet, at most `_fe_lag` after a call to process
-        self._fe_pending: List[tuple] = []
+        # collected yet, at most `_fe_lag` after a call to process (the
+        # instance tracker is collected one frame after its dispatch)
+        self._fe_pending: List[dict] = []
         self._fe_lag = 2
 
     def process(self, fi: FrameInput):
@@ -160,24 +158,11 @@ class System:
         in flight; returns that frame's output or None."""
         t = self.timer
         if self.cfg.pipelined:
-            with t.stage("frontend"):
-                h = self.tracker.track_begin(fi.img_left, fi.timestamp,
-                                             img_right=fi.img_right)
-            out = None
-            if len(self._fe_pending) >= self._fe_lag:
-                out = self._finish_oldest_pending()
-            self._fe_pending.append((h, fi))
-            return out
+            return self._process_pipelined(fi)
         with t.stage("perception"):
             masks_by_tid, background_mask = self._perception(fi)
         with t.stage("frontend"):
-            imgs_dev = None
-            if self.inst_tracker is not None:
-                # one upload a frame, shared with the instance tracker
-                use_right = self.cfg.is_stereo and fi.img_right is not None
-                imgs_dev = upload_stack(
-                    fi.img_left, fi.img_right if use_right else None,
-                    self.device)
+            imgs_dev = self._upload(fi)
             feats = self.tracker.track(fi.img_left, fi.timestamp,
                                        mask=background_mask,
                                        img_right=fi.img_right,
@@ -192,6 +177,59 @@ class System:
                     ego_pose=self._ego_estimate(), imgs_dev=imgs_dev)
                 instances = self._collect_instances(h_inst, masks_by_tid)
         return self._finish_frame(fi, feats, instances)
+
+    def _upload(self, fi: FrameInput):
+        """DYNAMIC: the frame's image stack on the device, uploaded once
+        and shared by both trackers; else None (the tracker uploads)."""
+        if self.inst_tracker is None:
+            return None
+        use_right = self.cfg.is_stereo and fi.img_right is not None
+        return upload_stack(fi.img_left,
+                            fi.img_right if use_right else None,
+                            self.device)
+
+    def _process_pipelined(self, fi: FrameInput):
+        """Dispatch frame k's tracker step; finish the oldest frame in
+        flight; collect the instance tracker's frame k-1, then dispatch
+        its frame k (its host slot state feeds the next dispatch, so it
+        runs one frame behind whatever the frontend's depth)."""
+        t = self.timer
+        with t.stage("perception"):
+            masks_by_tid, background_mask = self._perception(fi)
+        # masked modes give the tracker a mask on every frame
+        if self.cfg.slam != SlamMode.RAW and background_mask is None:
+            background_mask = self._all_true_mask(fi.img_left.shape)
+        with t.stage("frontend"):
+            imgs_dev = self._upload(fi)
+            h = self.tracker.track_begin(
+                fi.img_left, fi.timestamp, mask=background_mask,
+                img_right=fi.img_right, imgs_dev=imgs_dev)
+        out = None
+        if len(self._fe_pending) >= self._fe_lag:
+            out = self._finish_oldest_pending()
+        h_inst = None
+        if self.inst_tracker is not None:
+            with t.stage("instances"):
+                if self._fe_pending and \
+                        self._fe_pending[-1]["h_inst"] is not None:
+                    last = self._fe_pending[-1]
+                    last["instances"] = self._collect_instances(
+                        last["h_inst"], last["masks"])
+                    last["h_inst"] = None
+                if masks_by_tid:
+                    h_inst = self.inst_tracker.track_begin(
+                        fi.img_left, {tid: m for tid, (m, _)
+                                      in masks_by_tid.items()},
+                        img_right=fi.img_right, disparity=fi.disparity,
+                        ego_pose=self._ego_estimate(), imgs_dev=imgs_dev)
+        self._fe_pending.append(dict(h=h, fi=fi, h_inst=h_inst,
+                                     masks=masks_by_tid, instances=None))
+        return out
+
+    def _all_true_mask(self, shape):
+        if self._ones_mask is None or self._ones_mask.shape != shape:
+            self._ones_mask = np.ones(shape, bool)
+        return self._ones_mask
 
     def _finish_frame(self, fi: FrameInput, feats, instances=None):
         t = self.timer
@@ -254,8 +292,9 @@ class System:
         return masks_by_tid, background
 
     def _ego_estimate(self):
-        """The newest estimated ego pose (the instance tracker lifts the
-        extra points with it): the frame before the current one."""
+        """The newest estimated ego pose on the host (the instance
+        tracker lifts the extra points with it): the frame before the
+        current one; pipelined, the lagged host mirror's."""
         fc = self.estimator.frame_count
         if fc:
             return (self.estimator.state.p[fc - 1],
@@ -399,10 +438,18 @@ class System:
 
     def _finish_oldest_pending(self):
         """Collect + finish the oldest frame in flight."""
-        h, fi = self._fe_pending.pop(0)
+        e = self._fe_pending.pop(0)
+        if e["h_inst"] is not None:
+            # collected at lag 1 in process; here when draining
+            e["instances"] = self._collect_instances(e["h_inst"],
+                                                     e["masks"])
+            e["h_inst"] = None
         with self.timer.stage("frontend"):
-            feats = self.tracker.track_collect(h)
-        return self._finish_frame(fi, feats)
+            feats = self.tracker.track_collect(e["h"])
+        # the lagged frame's MOT rows use its own detections
+        self._last_dets = {tid: det for tid, (_, det)
+                           in e["masks"].items()}
+        return self._finish_frame(e["fi"], feats, e["instances"])
 
     def drain(self):
         """Finish every frame in flight, the frontend's and then the

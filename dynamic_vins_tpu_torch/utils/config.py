@@ -1,17 +1,163 @@
 """Run configuration, mirroring the reference's YAML schema.
 
 Same fields and key names as the JAX package's `VioConfig`, so one
-config file drives either package. `yaml` is imported only inside
-`from_yaml`: the card's machine has none, and nothing else needs it.
+config file drives either package. `from_yaml` reads the files with a
+parser of its own (`parse_flat_yaml`), so the port needs no `yaml`
+package: a config is a flat mapping of scalars and lists.
 """
 
 from __future__ import annotations
 
+import ast
 import enum
+import re
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+# YAML 1.1 implicit scalar types, as yaml.safe_load resolves them
+_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE",
+                          "on", "On", "ON"), True),
+         **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE",
+                          "off", "Off", "OFF"), False)}
+_NULL = {"", "~", "null", "Null", "NULL"}
+_INT = re.compile(r"[-+]?(?:0b[01_]+|0[0-7_]+|0x[0-9a-fA-F_]+|0|[1-9][0-9_]*)")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*(?:[eE][-+][0-9]+)?")
+_INF_NAN = {**dict.fromkeys(("+.inf", ".inf", "+.Inf", ".Inf", "+.INF",
+                             ".INF"), float("inf")),
+            **dict.fromkeys(("-.inf", "-.Inf", "-.INF"), float("-inf")),
+            **dict.fromkeys((".nan", ".NaN", ".NAN"), float("nan"))}
+_SEXAGESIMAL = re.compile(r"[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?")
+
+
+def _yaml_scalar(tok: str, where: str):
+    """One scalar token as yaml.safe_load types it."""
+    if tok[:1] in ("'", '"'):
+        q = tok[0]
+        if len(tok) < 2 or tok[-1] != q:
+            raise ValueError(f"{where}: unterminated quoted string {tok!r}")
+        body = tok[1:-1]
+        if q == "'":
+            return body.replace("''", "'")
+        return ast.literal_eval('"' + body + '"')
+    if tok[:1] in ("&", "*", "!", "|", ">", "{", "[", "%", "@", "`"):
+        raise ValueError(f"{where}: {tok!r} is not a plain scalar (anchors,"
+                         " tags, block strings and nesting are not read)")
+    if tok in _NULL:
+        return None
+    if tok in _BOOL:
+        return _BOOL[tok]
+    if tok in _INF_NAN:
+        return _INF_NAN[tok]
+    if _SEXAGESIMAL.fullmatch(tok):
+        raise ValueError(f"{where}: base-60 number {tok!r} is not read")
+    if _INT.fullmatch(tok):
+        t = tok.replace("_", "")
+        sign, t = (-1, t[1:]) if t[0] == "-" else (1, t.lstrip("+"))
+        if t.startswith("0b"):
+            return sign * int(t[2:], 2)
+        if t.startswith("0x"):
+            return sign * int(t[2:], 16)
+        if len(t) > 1 and t[0] == "0":
+            return sign * int(t, 8)
+        return sign * int(t)
+    if _FLOAT.fullmatch(tok) and any(c.isdigit() for c in tok):
+        return float(tok.replace("_", ""))
+    if ": " in tok or tok.endswith(":"):
+        raise ValueError(f"{where}: nested mapping {tok!r} is not read")
+    return tok
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing comment (a '#' at the start or after
+    whitespace, outside quotes)."""
+    q = None
+    for i, c in enumerate(line):
+        if q:
+            if c == q:
+                q = None
+        elif c in ("'", '"'):
+            q = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _split_flow(body: str, where: str):
+    """The items of a flow list's inside ('1.0, 2, "a"')."""
+    items, cur, q = [], "", None
+    for c in body:
+        if q:
+            cur += c
+            if c == q:
+                q = None
+        elif c in ("'", '"'):
+            q = c
+            cur += c
+        elif c in "[]{}":
+            raise ValueError(f"{where}: nested collections are not read")
+        elif c == ",":
+            items.append(cur.strip())
+            cur = ""
+        else:
+            cur += c
+    if q:
+        raise ValueError(f"{where}: unterminated quoted string")
+    if cur.strip():
+        items.append(cur.strip())
+    elif items:
+        raise ValueError(f"{where}: empty item in a flow list")
+    return [_yaml_scalar(t, where) for t in items]
+
+
+def parse_flat_yaml(text: str, name: str = "<config>") -> dict:
+    """A flat YAML mapping of scalars and lists of scalars, typed as
+    `yaml.safe_load` types it: block (`- 1.0`) and flow (`[1.0, 2]`)
+    lists, comments, quoted strings, ints, floats, bools and null.
+    Anything else raises ValueError naming the line."""
+    out: dict = {}
+    lines = [_strip_comment(l).rstrip() for l in text.splitlines()]
+    block = None               # the key whose block list is being read
+    i = 0
+    while i < len(lines):
+        where, line = f"{name}:{i + 1}", lines[i]
+        i += 1
+        if not line.strip() or (not out and line == "---"):
+            continue
+        item = line.lstrip()
+        if item == "-" or item.startswith("- "):
+            if block is None:
+                raise ValueError(f"{where}: list item outside a block list")
+            out[block].append(_yaml_scalar(item[1:].strip(), where))
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"{where}: indented line (nested mappings are "
+                             "not read)")
+        m = re.match(r"""('[^']*'|"[^"]*"|[^:'"][^:]*?)\s*:(?:\s+(.*))?$""",
+                     line)
+        if not m:
+            raise ValueError(f"{where}: not a 'key: value' line: {line!r}")
+        key = _yaml_scalar(m.group(1), where)
+        value = (m.group(2) or "").strip()
+        block = None
+        if value.startswith("["):
+            while "]" not in value and i < len(lines):  # multi-line flow
+                value += " " + lines[i].strip()
+                i += 1
+            if not value.endswith("]"):
+                raise ValueError(f"{where}: malformed flow list {value!r}")
+            out[key] = _split_flow(value[1:-1], where)
+        elif value:
+            out[key] = _yaml_scalar(value, where)
+        else:
+            # a block list follows, or the value is null
+            nxt = next((l for l in lines[i:] if l.strip()), "")
+            if nxt.lstrip().startswith("-"):
+                out[key], block = [], key
+            else:
+                out[key] = None
+    return out
 
 
 class SlamMode(enum.Enum):
@@ -108,10 +254,8 @@ class VioConfig:
 
     @classmethod
     def from_yaml(cls, path: str, seq_name: str = "") -> "VioConfig":
-        import yaml
-
         with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+            raw = parse_flat_yaml(f.read(), str(path))
         cfg = cls()
         b = lambda v: bool(int(v))
         mapping = {

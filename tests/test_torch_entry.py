@@ -1,8 +1,8 @@
 """The port's entry points: they run on the CUDA device unless asked for
 the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
-ROADMAP item (NAIVE and DYNAMIC run on the sequential paths; pipelined
-they raise)."""
+ROADMAP item (NAIVE and DYNAMIC run on the sequential and pipelined
+paths; more than one card raises)."""
 
 import numpy as np
 import pytest
@@ -73,20 +73,26 @@ def test_unported_system_switches_raise(field, tmp_path):
 
 @pytest.mark.parametrize("mode", [SlamMode.NAIVE, SlamMode.DYNAMIC])
 def test_unported_modes_raise(mode, tmp_path):
-    """NAIVE and DYNAMIC are ported on the sequential paths; pipelined
-    they raise, naming ROADMAP queue 1 item 15b."""
+    """NAIVE and DYNAMIC are ported on the sequential and pipelined
+    paths; on more than one card they raise, naming ROADMAP queue 1
+    item 18."""
     cfg = _mode(mode)
-    system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
-    assert (system.mot is not None) == (mode == SlamMode.DYNAMIC)
-    assert (system.estimator.im is not None) == (mode == SlamMode.DYNAMIC)
-    system.close()
-    cfg.pipelined = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.*15b"):
+    for pipelined in (False, True):
+        cfg.pipelined = pipelined
+        system = System(cfg, output_prefix=str(tmp_path / "run"),
+                        device="cpu")
+        assert (system.mot is not None) == (mode == SlamMode.DYNAMIC)
+        assert (system.estimator.im is not None) == (mode
+                                                     == SlamMode.DYNAMIC)
+        assert system.estimator.cfg.pipelined == pipelined
+        system.close()
+    cfg.devices = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 18"):
         System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(use_line=True),
-                                dict(dynamic=True, pipelined=True),
+                                dict(mesh=object()),
                                 dict(calibrate_extrinsic_rotation=True),
                                 dict(stereo=False)])
 def test_unported_estimator_paths_raise(kw):

@@ -1,6 +1,8 @@
 """The port stands alone: importing it (and every module in it) loads
-neither JAX nor the JAX package, and no source of the port or of
-chip_smoke.py names them in an import.
+neither JAX nor the JAX package, nor OpenCV, PyYAML or PIL (the port
+runs where none of them is installed), and no source of the port or of
+chip_smoke.py names them in an import. The PNG decoder's C source
+builds from the repository alone, into its build directory.
 
 The import check runs in a subprocess: this test process already has
 JAX loaded by the repository's conftest."""
@@ -14,7 +16,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dynamic_vins_tpu_torch"
-BANNED = ("jax", "jaxlib", "dynamic_vins_tpu", "cv2", "yaml")
+BANNED = ("jax", "jaxlib", "dynamic_vins_tpu", "cv2", "yaml", "PIL")
 
 
 def _port_modules():
@@ -30,7 +32,9 @@ def test_scan_covers_every_module():
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
               "estimator.host_math", "estimator.instance_manager",
               "factors.object_factors", "solver.object_solver",
-              "frontend.instance_tracker", "convert", "system"):
+              "frontend.instance_tracker", "convert", "system", "run",
+              "io.image_io", "io.datasets", "io.evaluation",
+              "io.eval_tools"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 
@@ -63,4 +67,32 @@ def test_source_imports_nothing_banned(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in BANNED[:3], f"{path}:{node.lineno} {name}"
+            assert top not in BANNED, f"{path}:{node.lineno} {name}"
+
+
+def test_cli_import_loads_no_decoder_library():
+    """The CLI and its readers import without OpenCV, PyYAML or PIL."""
+    code = ("import sys\n"
+            "import dynamic_vins_tpu_torch.run\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'yaml', 'PIL'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_png_unfilter_builds_from_the_repo():
+    from dynamic_vins_tpu_torch.ops import build
+
+    src, _ = build._source("png_unfilter")
+    assert src == PORT / "csrc" / "png_unfilter.c"
+    out = build.build("png_unfilter")
+    assert out == build.library_path("png_unfilter")
+    assert out.parent == REPO / "build" / "kernels" and out.exists()
+    # nothing outside the repository: the source includes only the C
+    # library's headers
+    includes = [l for l in src.read_text().splitlines()
+                if l.startswith("#include")]
+    assert includes == ["#include <stdint.h>", "#include <stdlib.h>",
+                        "#include <string.h>"]
