@@ -76,8 +76,41 @@ Phases (any failure exits non-zero before the result lines):
      segmentation read back equal), launch and replay counts as in
      phases 4 and 9, aligned ATE < 0.20 m, a non-empty MOT file. Prints
      the decode ms a frame and CLEAR-MOT against the labels (MOTA, ID
-     switches, track ids). The CLI's estimator runs in float64 (the
-     System's default).
+     switches, track ids). The CLI's estimator runs in float32 (the
+     System's default on the card). Last, the EuRoC tree again with a
+     config that sets `is_stereo: 0` (mono+IMU): one track launch a
+     frame, one replay a steady frame, initialized, finite poses.
+ 13. mono: the slice's scene (seed 0, 20 Hz camera, 200 Hz IMU with
+     noise, VioConfig defaults with `is_stereo` off, estimator in
+     float32) through the System on the megastep, from frame 0 until
+     15 steady frames after the frame on which the mono initialization
+     (essential matrix, SfM, visual-inertial alignment) succeeded; it
+     must succeed by frame 14. Gates: the track kernel launched once a
+     frame (the temporal track only), no level launch and no plain LK;
+     one megastep replay every steady frame; initialized and not failed;
+     on the frames from initialization + 10 on, the trajectory's shape:
+     ATE after a similarity alignment < 0.10 m. The metric scale is
+     printed, not gated: on this scene the reference's own mono
+     initialization gives a trajectory about 6x too short (the JAX
+     System on the CPU: scale 6.31, ATE aligned without scale 0.289 m;
+     PERF.md), which the window's BA corrects only over ~100 frames at
+     20 Hz. The reference's metric gates (tests/test_mono_vio.py: ATE
+     aligned without scale < 0.10 m, Umeyama scale within 5% of 1, on
+     frames 25-39) are then held on that test's own protocol: the
+     estimator alone in float64 on its 40 feature-domain mono frames
+     (10 Hz, seed 0, 0.5 px, window 11) on the megastep. Prints the
+     frame it initialized on, the initialization's host ms, ms/frame and
+     stage means over the steady frames after the one that captures the
+     graphs, and peak memory.
+ 14. resume: in float64 at the slice's widths on the scene's
+     feature-domain frames (as phase 5), the estimator runs 20 frames,
+     saves a checkpoint, and a fresh estimator on the megastep loads it
+     and runs the last 10: their positions within 1e-6 m of the
+     uninterrupted run's, and both runs replay the graphs (one replay a
+     steady frame); then the same checkpoint loaded into the
+     uninterrupted estimator, whose graphs were captured long before,
+     runs the last 10 again within the same bound, which shows a loaded
+     state reaches the captured graphs' buffers.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -120,6 +153,12 @@ N_OBJECTS = 3
 NAIVE_FRAMES = 15          # the NAIVE phase's depth
 DYN_ATE_GATE_M = 0.25      # tests/test_dynamic_rendered.py:95
 DYN_OBJ_GATE_M = 2.0       # tests/test_dynamic_rendered.py:113
+MONO_STEADY = 15           # steady frames after the mono initialization
+MONO_ATE_GATE_M = 0.10     # tests/test_mono_vio.py:39-40, aligned
+MONO_SCALE_TOL = 0.05      # tests/test_mono_vio.py:43-45, Umeyama scale
+MONO_REF_FRAMES = 40       # tests/test_mono_vio.py's protocol
+MONO_REF_FROM = 25
+RESUME_AT = 20             # phase 14 checkpoints after this many frames
 
 
 def fail(msg: str):
@@ -947,6 +986,37 @@ def cli_phase(torch, seq, imgs, dframes, objs):
         fail(f"cli-euroc: {len(t_est)} poses, aligned ATE {ate} m")
     total = dict(launches)
 
+    # ---- the same tree, mono+IMU (is_stereo: 0) ------------------------
+    write_config(root / "euroc_mono.yaml", dict(
+        rig_cfg, dataset="euroc", slam="raw", imu=1, is_stereo=0))
+    out = str(root / "euroc_mono_run")
+    system, launches, ms = run_cli(
+        torch, "cli-euroc-mono", ["--dataset", "euroc", "--root",
+                                  str(root / "euroc"), "--config",
+                                  str(root / "euroc_mono.yaml"),
+                                  "--output", out], FRAMES)
+    est = system.estimator
+    replays = sum(est._mega.replays.values())
+    steady = sum(system.steady_calls)
+    t_est, p_est, _ = read_tum(out + "_ego_tum.txt")
+    print(f"cli-euroc-mono: kernel launches {json.dumps(launches)}, "
+          f"megastep replays {replays} for {steady} steady frames, "
+          f"estimator dtype {est.dtype}, stereo {est.cfg.stereo}, "
+          f"initialized {est.initialized}; {len(t_est)} poses; "
+          f"{ms:.2f} ms/frame over the whole run", flush=True)
+    want = dict(lk_level=0, plain_levels=0, lk_track_r8=0,
+                lk_track_r10=FRAMES)
+    if launches != want or replays != steady or not steady \
+            or est.cfg.stereo or not est.initialized or est.failed:
+        fail(f"cli-euroc-mono: launches {launches} (expected {want}), "
+             f"{replays} replays for {steady} steady frames, "
+             f"initialized {est.initialized}, failed {est.failed}")
+    if len(t_est) != FRAMES or not np.isfinite(p_est).all():
+        fail(f"cli-euroc-mono: {len(t_est)} poses, finite "
+             f"{np.isfinite(p_est).all()}")
+    for key, n in launches.items():
+        total[key] += n
+
     # ---- KITTI tracking: DYNAMIC, no IMU, offline artifacts ----------
     t0 = time.perf_counter()
     ki = root / "kitti"
@@ -1048,6 +1118,245 @@ def cli_phase(torch, seq, imgs, dframes, objs):
     for key, n in launches.items():
         total[key] += n
     return total
+
+
+def mono_phase(torch, dev, seq, imgs, imus):
+    """Phase 13: the mono+IMU System on the slice's scene (module
+    docstring). Counts set to 0 just before the frames, read just after;
+    returns the launch counts."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io.evaluation import (ate_rmse,
+                                                      umeyama_alignment)
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    name = "mono"
+    cfg = slice_config(seq.rig, VioConfig())
+    cfg.is_stereo = False
+    system = System(cfg, output_prefix=str(REPO / "output" /
+                                           "chip_smoke_mono"), device=dev)
+    est = system.estimator
+    init_by = FRAMES - MONO_STEADY - 1
+    print(f"{name}: {seq.rig.width}x{seq.rig.height} mono+IMU RAW, window "
+          f"{cfg.window_size}, max_cnt {cfg.max_cnt}, estimator dtype "
+          f"{est.dtype}, megastep {est.cfg.use_megastep}, LK backend "
+          f"{system.tracker._tracker.backend}; initialized by frame "
+          f"{init_by}, then {MONO_STEADY} steady frames", flush=True)
+    init_calls = []
+    initialize_mono = est._initialize_mono
+
+    def timed_init():
+        t0 = time.perf_counter()
+        ok = initialize_mono()
+        init_calls.append((round(1e3 * (time.perf_counter() - t0), 2), ok))
+        return ok
+
+    est._initialize_mono = timed_init
+    graph = est._mega
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, [graph])
+    outs, init, steady, frame_ms = [], None, 0, []
+    for k in range(FRAMES):
+        # the first steady frame captures the graphs: time the rest
+        if init is not None and k == init + 2:
+            torch.cuda.synchronize()
+            system.reset_timers()
+            t_steady = time.perf_counter()
+        steady += (est.initialized
+                   and est.frame_count == est.cfg.num_frames - 1)
+        t0 = time.perf_counter()
+        out = system.process(FrameInput(float(seq.frame_times[k]),
+                                        imgs[k][0], imgs[k][1],
+                                        imu=imus[k]))
+        frame_ms.append(round(1e3 * (time.perf_counter() - t0), 2))
+        outs.append(out)
+        if init is None and est.initialized:
+            init = k
+        if init is None and k >= init_by:
+            fail(f"{name}: not initialized by frame {k} (attempts, host ms "
+                 f"and result: {init_calls})")
+        if init is not None and k == init + MONO_STEADY:
+            break
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t_steady) / (MONO_STEADY - 1)
+    frames = len(outs)
+    launches = dict(lk_level=K.launches, lk_track=K.track_launches,
+                    plain_levels=K.plain_levels)
+    replays = sum(graph.replays.values())
+    stages = system.close()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ft = seq.frame_times.numpy()[:frames]
+    gt = seq.gt_p.numpy()[:frames]
+    p = np.stack([o.p for o in outs])
+    a = init + 10
+    ate = ate_rmse(ft[a:], p[a:], ft[a:], gt[a:], align=True,
+                   with_scale=False)
+    scale, R, t = umeyama_alignment(p[a:], gt[a:], with_scale=True)
+    shape = float(np.sqrt(np.mean(np.sum(
+        (scale * p[a:] @ R.T + t - gt[a:]) ** 2, axis=-1))))
+    print(f"{name}: initialized on frame {init} (host ms and result of "
+          f"each attempt: {init_calls}); kernel launches "
+          f"{json.dumps(launches)} over {frames} frames, megastep replays "
+          f"{replays} for {steady} steady frames", flush=True)
+    print(f"{name}: frames {a}-{frames - 1}: ATE after a similarity "
+          f"alignment {shape:.4f} m (gate {MONO_ATE_GATE_M} m); Umeyama "
+          f"scale {scale:.4f} and ATE aligned without scale {ate:.4f} m "
+          f"(not gated; the JAX System on the CPU: 6.31, 0.289 m); steady "
+          f"ms/frame (frames {init + 2}-{frames - 1}, after the capture "
+          f"frame) {steady_ms:.2f}, peak device memory {peak:.1f} MiB",
+          flush=True)
+    print(f"{name}: stage means (ms, the same frames):", json.dumps(stages),
+          flush=True)
+    print(f"{name}: host ms per call (no synchronize):",
+          json.dumps(frame_ms), flush=True)
+    if launches != dict(lk_level=0, lk_track=frames, plain_levels=0):
+        fail(f"{name}: LK kernel launches {launches}, expected lk_track "
+             f"{frames} (the temporal track, one a frame) and no level "
+             f"launch or plain level")
+    if replays != steady or steady != MONO_STEADY:
+        fail(f"{name}: {replays} replays for {steady} steady frames "
+             f"(expected {MONO_STEADY})")
+    if not est.initialized or est.failed \
+            or not np.isfinite(p).all():
+        fail(f"{name}: initialized {est.initialized}, failed {est.failed},"
+             f" finite {np.isfinite(p).all()}")
+    if not shape < MONO_ATE_GATE_M:
+        fail(f"{name}: ATE after a similarity alignment {shape} m")
+    return launches
+
+
+def mono_reference_phase(torch, dev):
+    """Phase 13, second part: tests/test_mono_vio.py's protocol and gates
+    on the card, the estimator alone in float64 on the megastep."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                            EstimatorConfig)
+    from dynamic_vins_tpu_torch.io.evaluation import (ate_rmse,
+                                                      umeyama_alignment)
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+
+    seq = sim.generate_sequence(num_frames=MONO_REF_FRAMES, imu_hz=200.0,
+                                acc_noise=0.02, gyr_noise=0.002,
+                                num_landmarks=250, seed=0)
+    frames = frontend_sim.make_frames(seq, pixel_noise=0.5, stereo=False,
+                                      seed=0)
+    pr, qr = seq.rig.right_extrinsics()
+    est = Estimator(EstimatorConfig(num_frames=11, lm_capacity=384,
+                                    obs_capacity=6144, stereo=False,
+                                    dtype=torch.float64),
+                    np.stack([seq.rig.p_bc.numpy(), pr.numpy()]),
+                    np.stack([seq.rig.q_bc.numpy(), qr.numpy()]),
+                    device=dev)
+    t0 = time.perf_counter()
+    outs, init = [], None
+    for k, (f, imu) in enumerate(frames):
+        outs.append(est.process_frame(f, imu))
+        if init is None and est.initialized:
+            init = k
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(frames)
+    a = MONO_REF_FROM
+    t = seq.frame_times.numpy()[a:]
+    p = np.stack([o.p for o in outs])[a:]
+    gt = seq.gt_p.numpy()[a:]
+    ate = ate_rmse(t, p, t, gt, align=True, with_scale=False)
+    scale = umeyama_alignment(p, gt, with_scale=True)[0]
+    replays = sum(est._mega.replays.values())
+    print(f"mono-reference: tests/test_mono_vio.py's protocol ("
+          f"{MONO_REF_FRAMES} feature-domain mono frames at 10 Hz), "
+          f"float64, megastep: initialized on frame {init}, {replays} "
+          f"replays; frames {a}-{MONO_REF_FRAMES - 1}: ATE aligned without "
+          f"scale {ate:.4f} m (gate {MONO_ATE_GATE_M} m), Umeyama scale "
+          f"{scale:.4f} (gate 1 +- {MONO_SCALE_TOL}); {ms:.2f} ms/frame "
+          f"over the whole run", flush=True)
+    if init is None or est.failed or not replays:
+        fail(f"mono-reference: initialized on {init}, failed {est.failed}, "
+             f"{replays} replays")
+    if not (ate < MONO_ATE_GATE_M and abs(scale - 1.0) < MONO_SCALE_TOL):
+        fail(f"mono-reference: ATE {ate} m, scale {scale}")
+
+
+def resume_phase(torch, dev, seq):
+    """Phase 14: a checkpoint after RESUME_AT frames, loaded into a fresh
+    estimator on the megastep, against the uninterrupted run (module
+    docstring)."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                            EstimatorConfig)
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import obs_capacity
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    cfg = VioConfig()
+    F = cfg.num_frames
+    frames = frontend_sim.make_frames(seq, max_feats=N_FEAT,
+                                      pixel_noise=0.5)
+    pr, qr = seq.rig.right_extrinsics()
+    p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
+    q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
+
+    def fresh():
+        est = Estimator(EstimatorConfig(
+            num_frames=F, obs_capacity=obs_capacity(cfg),
+            dtype=torch.float64), p_bc, q_bc, device=dev)
+        est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                             sim.state_at(seq.frame_times[0])[2].numpy())
+        return est
+
+    path = REPO / "output" / "chip_smoke_resume.npz"
+    path.parent.mkdir(exist_ok=True)
+    whole = fresh()
+    p_whole = []
+    for k, (f, imu) in enumerate(frames):
+        p_whole.append(whole.process_frame(f, imu).p)
+        if k == RESUME_AT - 1:
+            t0 = time.perf_counter()
+            whole.save_checkpoint(str(path))
+            save_ms = 1e3 * (time.perf_counter() - t0)
+    resumed = fresh()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(str(path))
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    p_res = [resumed.process_frame(f, imu).p for f, imu in
+             frames[RESUME_AT:]]
+    gap = float(np.abs(np.stack(p_res) - np.stack(p_whole[RESUME_AT:]))
+                .max())
+    rep_whole = sum(whole._mega.replays.values())
+    rep_res = sum(resumed._mega.replays.values())
+    # the same checkpoint into the uninterrupted estimator, whose graphs
+    # were captured long before: its last frames again
+    whole.load_checkpoint(str(path))
+    p_again = [whole.process_frame(f, imu).p for f, imu in
+               frames[RESUME_AT:]]
+    gap2 = float(np.abs(np.stack(p_again)
+                        - np.stack(p_whole[RESUME_AT:])).max())
+    rep_again = sum(whole._mega.replays.values()) - rep_whole
+    print(f"resume: float64, checkpoint after {RESUME_AT} frames "
+          f"({path.stat().st_size / 2**20:.2f} MiB, saved in {save_ms:.1f} "
+          f"ms, loaded in {load_ms:.1f} ms); the last "
+          f"{FRAMES - RESUME_AT} frames resumed in a fresh estimator: max "
+          f"|p - p_uninterrupted| {gap:.3e} m (bound {REPLAY_POS_ATOL_M} "
+          f"m); megastep replays {rep_whole} uninterrupted, {rep_res} "
+          f"resumed; loaded again into the uninterrupted estimator (its "
+          f"graphs captured before): max gap {gap2:.3e} m over "
+          f"{rep_again} replays", flush=True)
+    if whole.failed or resumed.failed or not gap <= REPLAY_POS_ATOL_M \
+            or not gap2 <= REPLAY_POS_ATOL_M:
+        fail(f"resume: the resumed runs part by {gap} / {gap2} m (failed "
+             f"{whole.failed} / {resumed.failed})")
+    n = FRAMES - RESUME_AT
+    if (rep_whole, rep_res, rep_again) != (FRAMES - F, n, n):
+        fail(f"resume: {rep_whole} / {rep_res} / {rep_again} replays, "
+             f"expected {FRAMES - F} / {n} / {n}")
 
 
 def solve_times(torch, graph):
@@ -1234,9 +1543,12 @@ def main():
           f" against the sequential DYNAMIC phase's "
           f"{dyn['steady_ms']:.2f}", flush=True)
     cli = cli_phase(torch, seq, imgs, dframes, objs)
-    # launches of every main-path phase (4, 6-12), each counted from 0
+    mono = mono_phase(torch, dev, seq, imgs, imus)
+    mono_reference_phase(torch, dev)
+    resume_phase(torch, dev, seq)
+    # launches of every main-path phase (4, 6-13), each counted from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
-    for r in (seqr, pipe, multi, naive, naive_pipe):
+    for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono)):
         launches["lk_level"] += r["launches"]["lk_level"]
         launches["lk_track"] += r["launches"]["lk_track"]
     for r in (dyn["launches"], dyn_pipe["launches"], cli):

@@ -4,7 +4,10 @@ Parity tests start both packages from identical state. The JAX side
 hands its NamedTuples over as numpy arrays keyed by field name (nested
 dicts for nested tuples, e.g. `{"lin_state": {...}, "jacobian": ...}`);
 these functions return the port's types on a given device and dtype.
-This module imports nothing of JAX.
+A whole estimator's state crosses as a checkpoint instead:
+`Estimator.save_checkpoint` / `load_checkpoint` write and read the JAX
+package's `.npz` keys, in either direction. This module imports nothing
+of JAX.
 """
 
 from __future__ import annotations

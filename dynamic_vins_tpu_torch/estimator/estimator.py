@@ -1,8 +1,13 @@
 """Sliding-window visual-inertial estimator (the backend).
 
-IMU interval preintegration, keyframe/parallax margin decision, stereo
-+IMU initialization with a gyro-bias solve, triangulation, windowed LM,
-outlier rejection, marginalization, window slide and failure detection.
+IMU interval preintegration, keyframe/parallax margin decision,
+initialization (stereo(+IMU) with a gyro-bias solve; mono+IMU by the
+essential matrix, SfM and the visual-inertial alignment of
+`initializer.py`), triangulation, windowed LM, outlier rejection,
+marginalization, window slide and failure detection; also the hand-eye
+calibration of the camera rotation, IMU-rate fast prediction, the loop
+correction, checkpoints (the JAX package's `.npz` keys), reset and
+runtime sensor changes.
 
 Split: this class is the frame-granularity host orchestrator. The
 window state, landmark bookkeeping and raw IMU buffers are host numpy;
@@ -29,7 +34,9 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from dynamic_vins_tpu_torch.estimator import initializer as ini
 from dynamic_vins_tpu_torch.estimator import triangulation
+from dynamic_vins_tpu_torch.estimator.ex_rotation import ExRotationCalibrator
 from dynamic_vins_tpu_torch.estimator.feature_manager import (
     DEFAULT_DEPTH, FeatureManager)
 from dynamic_vins_tpu_torch.factors import prior as prior_factor
@@ -38,15 +45,14 @@ from dynamic_vins_tpu_torch.geometry import lie, lie_np
 from dynamic_vins_tpu_torch.imu import preintegration as pre
 from dynamic_vins_tpu_torch.solver import gauss_newton as gn
 from dynamic_vins_tpu_torch.solver import layout, marginalization as marg
-from dynamic_vins_tpu_torch.utils.precision import resolve_device
+from dynamic_vins_tpu_torch.utils.precision import (default_dtype,
+                                                    resolve_device)
 from dynamic_vins_tpu_torch.utils.step_graph import StepGraph
 
 # ROADMAP.md names for the parts of the JAX estimator not ported yet
 _TODO = {
     "mesh": "queue 1 item 18 (multi-GPU)",
     "use_line": "queue 1 item 13 (LinePoint)",
-    "calibrate_extrinsic_rotation": "queue 1 item 12 (ex-rotation "
-                                    "calibration)",
 }
 
 
@@ -61,6 +67,8 @@ class EstimatorConfig:
     max_iters: int = 8
     huber_delta: float = 1.0
     estimate_extrinsic: bool = False
+    # hand-eye self-calibration of q_bc during start-up: once it
+    # converges it is written into the window state
     calibrate_extrinsic_rotation: bool = False
     estimate_td: bool = False
     outlier_thresh: float = 3.0 / 460.0   # reproj err, normalized plane
@@ -74,7 +82,8 @@ class EstimatorConfig:
     dynamic: bool = False
     use_line: bool = False
     mesh: object = None
-    dtype: torch.dtype = torch.float64
+    # None: the device's (float32 on the card, float64 on the CPU)
+    dtype: Optional[torch.dtype] = None
 
 
 class FrameFeatures(NamedTuple):
@@ -540,6 +549,25 @@ def megastep_pipelined(is_keyframe: bool, inputs, c: StepConsts):
                      obs2), out
 
 
+def _imu_midpoint(p, q, v, ba, bg, acc0, gyr0, acc1, gyr1, dt):
+    """One midpoint IMU step on the host (the reference's fast-path
+    propagation): rotation by the exact exponential of the mean rate,
+    acceleration the mean of both samples' in the world frame."""
+    g = np.array([0.0, 0.0, 9.81])
+    un_acc0 = lie_np.quat_rotate(q, acc0 - ba) - g
+    half = 0.5 * (0.5 * (gyr0 + gyr1) - bg) * dt
+    dq = np.concatenate([[1.0], half])
+    n2 = float(half @ half)
+    if n2 > 1e-12:          # exact exp for non-tiny rotations
+        theta = np.sqrt(n2)
+        dq = np.concatenate([[np.cos(theta)], np.sin(theta) / theta * half])
+    q = lie_np.quat_multiply(q, dq)
+    q /= np.linalg.norm(q)
+    un_acc1 = lie_np.quat_rotate(q, acc1 - ba) - g
+    un_acc = 0.5 * (un_acc0 + un_acc1)
+    return p + v * dt + 0.5 * un_acc * dt * dt, q, v + un_acc * dt
+
+
 class _HostSlots:
     """Host buffers of a step: float and int inputs to fill and the
     output's landing buffer, pinned on the card. `depth` slots rotate;
@@ -590,13 +618,9 @@ class Estimator:
                 raise NotImplementedError(
                     f"EstimatorConfig.{name} is not ported yet: ROADMAP "
                     f"{item}")
-        if config.stereo is False and config.use_imu:
-            raise NotImplementedError(
-                "mono+IMU initialization is not ported yet: ROADMAP "
-                "queue 1 item 12")
         self.cfg = config
         self.device = resolve_device(device)
-        self.dtype = config.dtype
+        self.dtype = config.dtype or default_dtype(self.device)
         F = config.num_frames
         self.fm = FeatureManager(num_frames=F, capacity=config.lm_capacity,
                                  obs_capacity=config.obs_capacity)
@@ -619,13 +643,11 @@ class Estimator:
         self._acc0 = np.zeros(3)
         self._gyr0 = np.zeros(3)
         self._pose_preset = False
-        self._latest = None
+        self._latest = None           # fast-prediction anchor state
+        self._fast_buf = []           # IMU samples since the last frame
         self._outlier_scores_cache = None
         self._reanchored = None
 
-        self._solver_cfg = gn.SolverConfig(
-            max_iters=config.max_iters, use_imu=config.use_imu,
-            huber_delta=config.huber_delta)
         fixed = np.zeros(layout.cam_dim(F), bool)
         if not config.estimate_extrinsic:
             fixed[layout.extrinsic_col(0, F):layout.td_col(F)] = True
@@ -638,18 +660,7 @@ class Estimator:
         pose0[layout.pose_col(0):layout.pose_col(0) + 6] = True
         self._pose0_mask = torch.tensor(pose0, device=self.device)
         self._pres = self._preintegrate_all()
-
-        # steady state: the step functions (graph chains on the card,
-        # both branches captured at first use) and their host buffers
-        c = StepConsts(F, config.lm_capacity, config.obs_capacity, C,
-                       config.use_imu, config.max_depth,
-                       config.outlier_thresh, noise, self._solver_cfg,
-                       self._fixed, self._pose0_mask)
-        self._consts = c
-        self._mega = StepGraph(functools.partial(megastep, c=c),
-                               self.device, keys=(True, False))
-        self._pipe = StepGraph(functools.partial(megastep_pipelined, c=c),
-                               self.device, keys=(True, False))
+        self._build_steps()
         self._mega_io = self._pipe_io = None
         self._pipe_res = None
         self._pipe_q = deque()
@@ -658,6 +669,10 @@ class Estimator:
         self._pipe_state_ts = None
         # StageTimer for the steady state's stages (be.*), or None
         self.timer = None
+        # LinePoint's landmark manager (ROADMAP queue 1 item 13)
+        self.lines = None
+        self.ex_calib = ExRotationCalibrator() \
+            if config.calibrate_extrinsic_rotation else None
         # per-object backend (DYNAMIC), in the estimator's dtype
         self.im = None
         if config.dynamic:
@@ -667,6 +682,24 @@ class Estimator:
             self.im = InstanceManager(InstanceConfig(num_frames=F,
                                                      dtype=self.dtype),
                                       device=self.device)
+
+    def _build_steps(self):
+        """The steady-state step functions for the current config: graph
+        chains on the card, both branches captured at their first use
+        (a new StepGraph captures anew)."""
+        config, F = self.cfg, self.cfg.num_frames
+        self._solver_cfg = gn.SolverConfig(
+            max_iters=config.max_iters, use_imu=config.use_imu,
+            huber_delta=config.huber_delta)
+        c = StepConsts(F, config.lm_capacity, config.obs_capacity,
+                       config.imu_per_edge, config.use_imu,
+                       config.max_depth, config.outlier_thresh, self.noise,
+                       self._solver_cfg, self._fixed, self._pose0_mask)
+        self._consts = c
+        self._mega = StepGraph(functools.partial(megastep, c=c),
+                               self.device, keys=(True, False))
+        self._pipe = StepGraph(functools.partial(megastep_pipelined, c=c),
+                               self.device, keys=(True, False))
 
     def _st(self, name: str):
         return self.timer.stage(name) if self.timer is not None \
@@ -761,6 +794,9 @@ class Estimator:
             feats = {fid: (pl, vl, None, None)
                      for fid, (pl, vl, _pr, _vr) in feats.items()}
         is_keyframe = self.fm.add_features(k, feats)
+        if (self.ex_calib is not None and self.ex_calib.result is None
+                and k > 0 and cfg.use_imu):
+            self._calibrate_ex_rotation(k)
 
         if cfg.use_megastep and self.initialized and k == F - 1:
             if cfg.pipelined:
@@ -1047,6 +1083,7 @@ class Estimator:
             "v": out.v.copy(), "ba": st3.ba[F - 1].copy(),
             "bg": st3.bg[F - 1].copy(), "acc": self._acc0.copy(),
             "gyr": self._gyr0.copy()}
+        self._fast_buf = [s for s in self._fast_buf if s[0] > t_k]
         return out
 
     def _slide_host_only(self, old: bool):
@@ -1167,9 +1204,15 @@ class Estimator:
         return stereo_ok, two_ok, tri_f
 
     def _initialize(self):
-        """Stereo (+IMU) initialization: gyro bias from visual vs
-        preintegrated rotations, finite-difference velocities."""
+        """Initialization dispatch: mono+IMU by SfM and visual-inertial
+        alignment (`_initialize_mono`); else stereo(+IMU): gyro bias from
+        visual vs preintegrated rotations, finite-difference
+        velocities."""
         cfg = self.cfg
+        if not cfg.stereo and cfg.use_imu:
+            if self._initialize_mono():
+                self.initialized = True
+            return
         if cfg.use_imu:
             st = self.state
             q_est = lie_np.quat_multiply(lie_np.quat_conjugate(st.q[:-1]),
@@ -1186,6 +1229,113 @@ class Estimator:
             st.v[:] = v
             self._pres = self._preintegrate_all()
         self.initialized = True
+
+    def _calibrate_ex_rotation(self, k: int):
+        """Push one hand-eye rotation pair (frame k-1 -> k) and solve
+        again; on convergence the calibrated q_bc goes into the window
+        state, which every later stage reads."""
+        fm = self.fm
+        mask = fm.active & fm.has_obs[:, k - 1] & fm.has_obs[:, k]
+        if mask.sum() < 15 or self.imu_n[k - 1] == 0:
+            return
+        rel = ini.solve_relative_pose(fm.pt[mask, k - 1, :2],
+                                      fm.pt[mask, k, :2])
+        if rel is None:
+            return
+        q_c = lie_np.matrix_to_quat(rel[0])   # camera k in camera k-1
+        # gyro-only body delta from the host IMU buffers (the
+        # preintegrations are refreshed later in the frame)
+        e = min(k - 1, self.cfg.num_frames - 2)
+        bg = self.state.bg[e]
+        q_b = np.array([1.0, 0.0, 0.0, 0.0])
+        for i in range(int(self.imu_n[e])):
+            w_mid = 0.5 * (self.imu_gyr[e, i] + self.imu_gyr[e, i + 1]) - bg
+            dq = np.concatenate([[1.0], 0.5 * w_mid * self.imu_dt[e, i]])
+            q_b = lie_np.quat_multiply(q_b, dq / np.linalg.norm(dq))
+        self.ex_calib.push(q_b, q_c)
+        q_bc, conv = self.ex_calib.solve()
+        if conv:
+            self.state.q_bc[0] = q_bc
+
+    def _initialize_mono(self) -> bool:
+        """Mono+IMU: the reference frame by parallax and the essential
+        matrix, SfM over the window, the gyro bias from the SfM
+        rotations, the linear gravity / velocity / scale alignment, the
+        world frame from gravity, and the window's poses, velocities and
+        depths in it. Host work, once; False leaves the window
+        uninitialized (it slides and tries again next frame)."""
+        cfg = self.cfg
+        F = cfg.num_frames
+        fm = self.fm
+        obs = {}        # {feature id: {frame: normalized xy}}
+        for sl in np.flatnonzero(fm.active):
+            fid = int(fm.feature_id[sl])
+            for f in np.flatnonzero(fm.has_obs[sl]):
+                obs.setdefault(fid, {})[int(f)] = fm.pt[sl, f, :2]
+
+        # reference: the earliest frame with enough parallax to the newest
+        # (30 px at the reference's focal length of 460, in normalized
+        # units) and an essential matrix
+        ref = rel = None
+        for l in range(F - 1):
+            both = [fo for fo in obs.values() if l in fo and F - 1 in fo]
+            if len(both) < 20:
+                continue
+            pts_i = np.asarray([fo[l] for fo in both])
+            pts_j = np.asarray([fo[F - 1] for fo in both])
+            par = np.mean(np.linalg.norm(pts_i - pts_j, axis=-1))
+            if par < 30.0 / 460.0:
+                continue
+            rel = ini.solve_relative_pose(pts_i, pts_j)
+            if rel is not None:
+                ref = l
+                break
+        if rel is None:
+            return False
+        ok, R_sfm, p_sfm, _ = ini.sfm_construct(F, obs, ref, rel[0], rel[1])
+        if not ok:
+            return False
+
+        # gyro bias from the SfM rotations (camera frame -> body frame)
+        R_bc = lie_np.quat_to_matrix(np.asarray(self.state.q_bc[0], float))
+        p_bc = np.asarray(self.state.p_bc[0], float)
+        R_c0b = [R_sfm[k] @ R_bc.T for k in range(F)]
+        q_rel = np.stack([lie.matrix_to_quat(torch.as_tensor(
+            R_c0b[k].T @ R_c0b[k + 1])).numpy() for k in range(F - 1)])
+        dbg = triangulation.solve_gyro_bias(
+            self._pres.dq_dbg[:F - 1], self._pres.delta_q[:F - 1],
+            self._f(q_rel))
+        dbg = self._host(torch.where(torch.isfinite(dbg), dbg, 0.0))
+        self.state.bg[:] = self.state.bg + dbg[None, :]
+        self._pres = self._preintegrate_all()
+        pres = self._pres.map(lambda a: a.detach().cpu().double().numpy())
+
+        # linear alignment: velocities, gravity (c0 frame), scale
+        pres_list = [dict(delta_p=pres.delta_p[k], delta_v=pres.delta_v[k])
+                     for k in range(F - 1)]
+        dt_edges = [float(pres.sum_dt[k]) for k in range(F - 1)]
+        p_sfm = [np.asarray(p) for p in p_sfm]
+        ok2, _, g_c0, _ = ini.solve_gravity_velocity_scale(
+            pres_list, R_c0b, p_sfm, p_bc, dt_edges)
+        if not ok2:
+            return False
+        v_body, g_c0, s = ini.refine_gravity(pres_list, R_c0b, p_sfm, p_bc,
+                                             dt_edges, g_c0)
+
+        # world frame: gravity-aligned, yaw-free, origin at body 0
+        R_w_c0 = lie.g2R(torch.as_tensor(g_c0)).numpy()
+        p_b_c0 = [s * p_sfm[k] - R_c0b[k] @ p_bc for k in range(F)]
+        st = self.state
+        for k in range(F):
+            R_wb = R_w_c0 @ R_c0b[k]
+            st.p[k] = R_w_c0 @ (p_b_c0[k] - p_b_c0[0])
+            st.q[k] = lie.matrix_to_quat(torch.as_tensor(R_wb)).numpy()
+            st.v[k] = R_wb @ v_body[k]
+
+        # depths against the metric poses
+        fm.depth_valid[:] = False
+        self._triangulate_new(F - 1)
+        return True
 
     # ------------------------------------------------------------------
     def _imu_valid_dev(self):
@@ -1350,26 +1500,11 @@ class Estimator:
         ba = np.asarray(ba)
         bg = np.asarray(bg)
         acc, gyr, dts = self.imu_acc[e], self.imu_gyr[e], self.imu_dt[e]
-        g = np.array([0.0, 0.0, 9.81])
         for i in range(n):
             dt = float(dts[i])
-            if dt <= 0.0:
-                continue
-            un_acc0 = lie_np.quat_rotate(q, acc[i] - ba) - g
-            un_gyr = 0.5 * (gyr[i] + gyr[i + 1]) - bg
-            half = 0.5 * un_gyr * dt
-            n2 = float(half @ half)
-            dq = np.concatenate([[1.0], half])
-            if n2 > 1e-12:
-                theta = np.sqrt(n2)
-                dq = np.concatenate(
-                    [[np.cos(theta)], np.sin(theta) / theta * half])
-            q = lie_np.quat_multiply(q, dq)
-            q /= np.linalg.norm(q)
-            un_acc1 = lie_np.quat_rotate(q, acc[i + 1] - ba) - g
-            un_acc = 0.5 * (un_acc0 + un_acc1)
-            p = p + v * dt + 0.5 * un_acc * dt * dt
-            v = v + un_acc * dt
+            if dt > 0.0:
+                p, q, v = _imu_midpoint(p, q, v, ba, bg, acc[i], gyr[i],
+                                        acc[i + 1], gyr[i + 1], dt)
         return p, q, v
 
     def _aligned_window_poses(self):
@@ -1486,16 +1621,114 @@ class Estimator:
     # ------------------------------------------------------------------
     def _output(self, k) -> OdometryOut:
         st = self.state
-        # anchor of IMU-rate prediction (fast_predict: ROADMAP queue 1
-        # item 12); set only once the window is aligned
-        self._latest = None if not self.initialized else {
-            "t": float(self.timestamps[k]), "p": st.p[k].copy(),
-            "q": st.q[k].copy(), "v": st.v[k].copy(),
-            "ba": st.ba[k].copy(), "bg": st.bg[k].copy(),
-            "acc": self._acc0.copy(), "gyr": self._gyr0.copy()}
+        self._update_latest(k)
         return OdometryOut(timestamp=float(self.timestamps[k]),
                            p=st.p[k].copy(), q=st.q[k].copy(),
                            v=st.v[k].copy())
+
+    # ------------------------------------------------------------------
+    # IMU-rate odometry between frames (FastPredictIMU, re-anchored by
+    # UpdateLatestStates at each frame)
+    # ------------------------------------------------------------------
+    def _update_latest(self, k):
+        """Anchor the fast prediction at the newest solved frame and
+        replay the IMU samples newer than it. Host numpy only; none
+        before initialization (the window is not aligned yet)."""
+        st = self.state
+        t_k = float(self.timestamps[k])
+        if not self.initialized:
+            self._latest = None
+            self._fast_buf = []
+            return
+        self._latest = {
+            "t": t_k, "p": st.p[k].copy(), "q": st.q[k].copy(),
+            "v": st.v[k].copy(), "ba": st.ba[k].copy(),
+            "bg": st.bg[k].copy(),
+            "acc": self._acc0.copy(), "gyr": self._gyr0.copy()}
+        buf = [s for s in self._fast_buf if s[0] > t_k]
+        self._fast_buf = []
+        for t, acc, gyr in buf:
+            self.fast_predict(t, acc, gyr)
+
+    def fast_predict(self, t, acc, gyr) -> Optional[OdometryOut]:
+        """Propagate the latest solved state through one IMU sample
+        (midpoint rule) for IMU-rate odometry between frames; None
+        before the first anchor and for a sample not newer than the
+        last one."""
+        if self._latest is None:
+            return None
+        L = self._latest
+        acc = np.asarray(acc, float)
+        gyr = np.asarray(gyr, float)
+        dt = float(t) - L["t"]
+        if dt <= 0.0:
+            return None
+        L["p"], L["q"], L["v"] = _imu_midpoint(
+            L["p"], L["q"], L["v"], L["ba"], L["bg"], L["acc"], L["gyr"],
+            acc, gyr, dt)
+        L["t"] = float(t)
+        L["acc"], L["gyr"] = acc, gyr
+        self._fast_buf.append((float(t), acc, gyr))
+        return OdometryOut(timestamp=float(t), p=L["p"].copy(),
+                           q=L["q"].copy(), v=L["v"].copy())
+
+    def apply_loop_correction(self, p_vio, q_vio, p_corr, q_corr):
+        """Re-anchor the live window on an accepted loop closure.
+
+        (p_vio, q_vio): the VIO pose of a reference instant (a loop
+        keyframe); (p_corr, q_corr): its pose-graph-corrected pose. The
+        4-DOF world correction (yaw and translation; pitch and roll are
+        observable through gravity and stay) moves the window, the
+        marginal prior's linearization point, the fast-prediction anchor
+        and the object tables. Depths are frame-anchored and move with
+        the window. Returns the pipelined frames drained first (the
+        device residents are primed again from the corrected mirrors at
+        the next frame)."""
+        outs = self.flush() if self._pipe_q else []
+        self._pipe_res = None
+        if self.lines is not None:
+            raise NotImplementedError(
+                "moving line landmarks is not ported yet: ROADMAP queue 1 "
+                "item 13 (LinePoint)")
+
+        def yaw_of(q):
+            R = lie_np.quat_to_matrix(np.asarray(q, float))
+            return float(np.arctan2(R[1, 0], R[0, 0]))
+
+        dyaw = yaw_of(q_corr) - yaw_of(q_vio)
+        c, s = np.cos(dyaw), np.sin(dyaw)
+        R_c = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        q_c = np.array([np.cos(dyaw / 2), 0.0, 0.0, np.sin(dyaw / 2)])
+        t_c = np.asarray(p_corr, float) - R_c @ np.asarray(p_vio, float)
+        tf_p = lambda p: p @ R_c.T + t_c
+        tf_q = lambda q: lie_np.quat_multiply(
+            np.broadcast_to(q_c, np.shape(q)), q)
+
+        st = self.state
+        st.p[:] = tf_p(st.p)
+        st.q[:] = tf_q(st.q)
+        st.v[:] = st.v @ R_c.T
+        ls = self.prior.lin_state
+        h = lambda a: a.detach().cpu().double().numpy()
+        self.prior = self.prior._replace(lin_state=ls._replace(
+            p=self._f(tf_p(h(ls.p))), q=self._f(tf_q(h(ls.q))),
+            v=self._f(h(ls.v) @ R_c.T)))
+        if self._latest is not None:
+            L = self._latest
+            L["p"] = R_c @ L["p"] + t_c
+            L["q"] = lie_np.quat_multiply(q_c, L["q"])
+            L["v"] = R_c @ L["v"]
+        if self.im is not None:
+            im = self.im
+            im._sync_pending()         # world-frame tables move rigidly
+            act = np.flatnonzero(im.active)
+            if act.size:
+                im.p[act] = tf_p(im.p[act])
+                im.q[act] = tf_q(im.q[act])
+                im.v[act] = im.v[act] @ R_c.T
+                im.q_det[act] = tf_q(im.q_det[act])
+                im.extra[act] = tf_p(im.extra[act])
+        return outs
 
     def set_initial_pose(self, p, q, v=None):
         """Anchor the world frame (otherwise gravity-aligned, yaw-free)."""
@@ -1505,7 +1738,121 @@ class Estimator:
             self.state.v[0] = np.asarray(v)
         self._pose_preset = True
 
+    # ------------------------------------------------------------------
+    # checkpoint / resume: one .npz with the JAX package's keys, so a
+    # checkpoint moves between the two packages in either direction
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str):
+        """Snapshot the estimator's state to one .npz file (a pipelined
+        estimator drains its frames in flight first)."""
+        if self._pipe_q:
+            self.flush()
+        fm = self.fm
+        h = lambda t: t.detach().cpu().numpy()
+        prior = self.prior
+        np.savez_compressed(
+            path,
+            state=np.array([], dtype=np.float64),  # marker
+            **{f"st_{k}": np.asarray(v)
+               for k, v in self.state._asdict().items()},
+            **{f"prior_ls_{k}": h(v)
+               for k, v in prior.lin_state._asdict().items()},
+            prior_jacobian=h(prior.jacobian),
+            prior_residual=h(prior.residual), prior_valid=h(prior.valid),
+            **{f"pres_{i}": h(v) for i, v in enumerate(self._pres)},
+            fm_active=fm.active, fm_feature_id=fm.feature_id,
+            fm_start_frame=fm.start_frame, fm_has_obs=fm.has_obs,
+            fm_has_right=fm.has_right, fm_pt=fm.pt,
+            fm_pt_right=fm.pt_right, fm_vel=fm.vel,
+            fm_vel_right=fm.vel_right, fm_inv_depth=fm.inv_depth,
+            fm_depth_valid=fm.depth_valid,
+            imu_acc=self.imu_acc, imu_gyr=self.imu_gyr,
+            imu_dt=self.imu_dt, imu_n=self.imu_n,
+            timestamps=self.timestamps,
+            meta=np.array([self.frame_count, int(self.initialized),
+                           int(self.failed), int(self._pose_preset)]))
+
+    def load_checkpoint(self, path: str):
+        """Restore a snapshot of `save_checkpoint` (of either package),
+        in this estimator's dtype and on its device. The captured step
+        graphs read the estimator's tensors through static copies made
+        at every step, so the next step runs on the restored state; a
+        pipelined estimator primes its device residents from it."""
+        z = np.load(path, allow_pickle=False)
+        if z["st_p"].shape[0] != self.cfg.num_frames:
+            raise ValueError(f"{path}: a window of {z['st_p'].shape[0]} "
+                             f"frames, this estimator's is "
+                             f"{self.cfg.num_frames}")
+        host_dt = self.state.p.dtype
+        self.state = layout.WindowState(
+            **{k: np.array(z[f"st_{k}"], dtype=host_dt)
+               for k in layout.WindowState._fields})
+        self.prior = prior_factor.MarginalPrior(
+            lin_state=layout.WindowState(
+                **{k: self._f(z[f"prior_ls_{k}"])
+                   for k in layout.WindowState._fields}),
+            jacobian=self._f(z["prior_jacobian"]),
+            residual=self._f(z["prior_residual"]),
+            valid=self._i(np.asarray(z["prior_valid"], bool)))
+        self._pres = pre.Preintegration(
+            *(self._f(z[f"pres_{i}"])
+              for i in range(len(pre.Preintegration._fields))))
+        fm = self.fm
+        for name in ("active", "feature_id", "start_frame", "has_obs",
+                     "has_right", "pt", "pt_right", "vel", "vel_right",
+                     "inv_depth", "depth_valid"):
+            setattr(fm, name, np.array(z[f"fm_{name}"],
+                                       dtype=getattr(fm, name).dtype))
+        fm._id_to_slot = {int(f): int(s) for s, f in
+                          enumerate(fm.feature_id) if f >= 0}
+        self.imu_acc = np.array(z["imu_acc"])
+        self.imu_gyr = np.array(z["imu_gyr"])
+        self.imu_dt = np.array(z["imu_dt"])
+        self.imu_n = np.array(z["imu_n"], dtype=np.int32)
+        self.timestamps = np.array(z["timestamps"])
+        meta = z["meta"]
+        self.frame_count = int(meta[0])
+        self.initialized = bool(meta[1])
+        self.failed = bool(meta[2])
+        self._pose_preset = bool(meta[3])
+        self._pipe_res = None
+        self._pipe_q.clear()
+        self._latest = None
+        self._fast_buf = []
+
     def reset(self):
-        """Clear the state and restart with the same calibration."""
+        """Clear the state and restart with the same calibration (the
+        reference's ClearState + restart)."""
         p_bc, q_bc = self.state.p_bc.copy(), self.state.q_bc.copy()
+        timer = self.timer
         self.__init__(self.cfg, p_bc, q_bc, self.noise, self.device)
+        self.timer = timer
+
+    def change_sensor_type(self, use_imu: bool, use_stereo: bool) -> bool:
+        """Runtime sensor reconfiguration (the reference's
+        ChangeSensorType): both sensors off is refused; turning the IMU
+        on restarts (the window was built without speed/bias states);
+        turning it off drops the marginal prior (it conditions on the
+        speed/bias blocks no longer estimated) and the steady step is
+        captured anew; stereo only gates whether right observations are
+        ingested from the next frame on. Returns True if applied."""
+        cfg = self.cfg
+        if not use_imu and not use_stereo:
+            return False
+        if self._pipe_q:
+            raise RuntimeError("flush the pipelined frames in flight "
+                               "before changing sensors")
+        restart = False
+        if cfg.use_imu != bool(use_imu):
+            cfg.use_imu = bool(use_imu)
+            if cfg.use_imu:
+                restart = True
+            else:
+                self.prior = prior_factor.MarginalPrior.empty(
+                    cfg.num_frames, self.dtype, self.device)
+                self._pipe_res = None
+                self._build_steps()
+        cfg.stereo = bool(use_stereo)
+        if restart:
+            self.reset()
+        return True

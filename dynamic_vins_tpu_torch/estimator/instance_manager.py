@@ -37,7 +37,8 @@ from dynamic_vins_tpu_torch.geometry import lie_np
 from dynamic_vins_tpu_torch.solver.object_solver import (ObjectProblem,
                                                          ObjectSolverConfig,
                                                          solve_all)
-from dynamic_vins_tpu_torch.utils.precision import resolve_device
+from dynamic_vins_tpu_torch.utils.precision import (default_dtype,
+                                                    resolve_device)
 from dynamic_vins_tpu_torch.utils.step_graph import StepGraph
 
 DEFAULT_DIMS = np.array([4.0, 2.0, 1.5])   # reference default (2,4,1.5)
@@ -56,7 +57,8 @@ class InstanceConfig:
     static_hysteresis: int = 3
     min_age_for_velocity: int = 3
     solver: ObjectSolverConfig = field(default_factory=ObjectSolverConfig)
-    dtype: torch.dtype = torch.float64
+    # None: the device's (float32 on the card, float64 on the CPU)
+    dtype: Optional[torch.dtype] = None
 
 
 def solve_layouts(cfg: InstanceConfig):
@@ -159,6 +161,7 @@ class InstanceManager:
         self._p_cw = None             # ego cam poses of the last solve
         self._q_cw = None
         self.device = resolve_device(device)
+        self.dtype = cfg.dtype or default_dtype(self.device)
         self._layouts = solve_layouts(cfg)
         self._io = None
         # the object BA: one branch, a CUDA graph on the card
@@ -442,7 +445,7 @@ class InstanceManager:
 
         fl, il, _ = self._layouts
         if self._io is None:
-            self._io = _HostSlots(self._layouts, cfg.dtype,
+            self._io = _HostSlots(self._layouts, self.dtype,
                                   self.solve_graph.on_card, depth=1)
         slot = self._io.next()
         fb, ib = slot.f.numpy(), slot.i.numpy()

@@ -3,27 +3,17 @@
 Reproduces `cv2.findFundamentalMat(p_prev, p_cur, FM_RANSAC, threshold,
 confidence)` (the classic `RANSACPointSetRegistrator` with the FM
 callback, n >= 15), which the JAX tracker calls, so that the same points
-give the same inlier mask:
+give the same inlier mask. The registrator's loop (cv::RNG, getSubset,
+the walk, RANSACUpdateNumIters) is `frontend/ransac.py`; the FM
+callback is here:
   * the points are rounded to float32, as OpenCV converts them;
-  * `cv::RNG` seeded with (uint64)-1 afresh on every call: next() is
-    state = (uint32)state * 4164903690 + (state >> 32), returning the
-    low 32 bits, and uniform(0, n) = next() % n;
-  * `getSubset`: 7 distinct indices (a duplicate is redrawn), rejected
-    and drawn anew while the 7th point of either set is collinear with
-    two earlier ones (`haveCollinearPoints`), at most 10000 attempts;
+  * `checkSubset` (`haveCollinearPoints`): a subset whose 7th point of
+    either set is collinear with two earlier ones is drawn anew;
   * `run7Point`: Hartley-normalized 7x9 system, its 2-D null space, the
     cubic det(a F1 + (1 - a) F2) = 0 (`solveCubic`), 1-3 models, each
     de-normalized and scaled to F[2,2] = 1;
   * each model scored by OpenCV's per-point error (the larger squared
-    point-to-epipolar-line distance, rounded to float32) against
-    float32(threshold^2); a model replaces the best only when its count
-    exceeds max(best, 6), and then the iteration count becomes
-    RANSACUpdateNumIters(confidence, outlier share, 7, niters), from a
-    cap of 1000.
-Samples are drawn in batches (4, doubling up to 64: the iteration count
-usually drops to a few after the first model) and their models solved
-and scored at once; the walk over them is sequential, as OpenCV's loop,
-so the batching changes no result.
+    point-to-epipolar-line distance, rounded to float32).
 """
 
 from __future__ import annotations
@@ -32,28 +22,12 @@ import math
 
 import numpy as np
 
-_BATCH = 64
+from dynamic_vins_tpu_torch.frontend import ransac
+
 _FLT_EPS = float(np.finfo(np.float32).eps)
 _DBL_EPS = float(np.finfo(np.float64).eps)
-_DBL_MIN = float(np.finfo(np.float64).tiny)
 MODEL_POINTS = 7
 MIN_POINTS = 15       # below this OpenCV runs LMeDS, not RANSAC
-
-
-class CvRng:
-    """`cv::RNG`: multiply-with-carry on a 64-bit state."""
-
-    def __init__(self, state: int = 0xFFFFFFFFFFFFFFFF):
-        self.state = state
-
-    def next(self) -> int:
-        s = self.state
-        s = ((s & 0xFFFFFFFF) * 4164903690 + (s >> 32)) & 0xFFFFFFFFFFFFFFFF
-        self.state = s
-        return s & 0xFFFFFFFF
-
-    def uniform(self, n: int) -> int:
-        return self.next() % n
 
 
 def _collinear(p) -> bool:
@@ -70,28 +44,6 @@ def _collinear(p) -> bool:
                     abs(dx1) + abs(dy1) + abs(dx2) + abs(dy2)):
                 return True
     return False
-
-
-def _draw_samples(rng: CvRng, p1, p2, count: int):
-    """The next `count` subsets `getSubset` returns -> ([<=count, 7] int,
-    gave_up): fewer when 10000 attempts in a row fail the collinearity
-    check, after which OpenCV stops drawing."""
-    n = p1.shape[0]
-    out = []
-    while len(out) < count:
-        for _ in range(10000):
-            idx = []
-            for _ in range(MODEL_POINTS):
-                k = rng.uniform(n)
-                while k in idx:
-                    k = rng.uniform(n)
-                idx.append(k)
-            if not (_collinear(p1[idx]) or _collinear(p2[idx])):
-                out.append(idx)
-                break
-        else:
-            return np.asarray(out, np.int64).reshape(-1, MODEL_POINTS), True
-    return np.asarray(out, np.int64).reshape(-1, MODEL_POINTS), False
 
 
 def _solve_cubic(c0, c1, c2, c3):
@@ -252,19 +204,6 @@ def epipolar_error(F, p1, p2):
         return np.maximum(d1 * d1 * s1, d2 * d2 * s2).astype(np.float32)
 
 
-def _update_num_iters(confidence, outlier_ratio, model_points, max_iters):
-    """OpenCV's RANSACUpdateNumIters."""
-    p = max(min(confidence, 1.0), 0.0)
-    ep = max(min(outlier_ratio, 1.0), 0.0)
-    num = max(1.0 - p, _DBL_MIN)
-    denom = 1.0 - (1.0 - ep) ** model_points
-    if denom < _DBL_MIN:
-        return 0
-    num, denom = math.log(num), math.log(denom)
-    return max_iters if denom >= 0 or -num >= max_iters * (-denom) \
-        else int(round(num / denom))
-
-
 def ransac_fundamental(p1, p2, threshold: float = 1.0,
                        confidence: float = 0.99, max_iters: int = 1000):
     """Inlier mask [n] bool of OpenCV's FM_RANSAC on these pairs, or None
@@ -275,31 +214,9 @@ def ransac_fundamental(p1, p2, threshold: float = 1.0,
     if n < MIN_POINTS:
         return None
     q1, q2 = p1.astype(np.float64), p2.astype(np.float64)
-    thr = np.float32(threshold * threshold)
-    rng = CvRng()
-    best_mask, best_count = None, 0
-    niters, it, batch = max(max_iters, 1), 0, 4
-    while it < niters:
-        idx, gave_up = _draw_samples(rng, p1, p2, min(batch, niters - it))
-        batch = min(2 * batch, _BATCH)
-        models = seven_point(q1[idx], q2[idx])
-        flat = [F for ms in models for F in ms]
-        if flat:
-            inl = epipolar_error(np.stack(flat), q1, q2) <= thr
-            counts = inl.sum(axis=1)
-        j = 0
-        for ms in models:
-            if it >= niters:
-                break
-            for _ in ms:
-                if counts[j] > max(best_count, MODEL_POINTS - 1):
-                    best_count = int(counts[j])
-                    best_mask = inl[j]
-                    niters = _update_num_iters(
-                        confidence, (n - best_count) / n, MODEL_POINTS,
-                        niters)
-                j += 1
-            it += 1
-        if gave_up:
-            break
-    return best_mask
+    mask, _ = ransac.ransac(
+        n, MODEL_POINTS, lambda idx: seven_point(q1[idx], q2[idx]),
+        lambda F: epipolar_error(F, q1, q2), threshold, confidence,
+        max_iters,
+        check=lambda idx: not (_collinear(p1[idx]) or _collinear(p2[idx])))
+    return mask

@@ -3,15 +3,16 @@ DYNAMIC mode, MOT and the instance tracker) -> sliding-window estimator
 (and the per-object backend) -> TUM trajectory and KITTI-MOT file.
 
 Built from one `VioConfig` like the JAX package's System, in three
-modes: RAW (stereo+IMU), NAIVE (the background tracker gated by a
-dynamic mask: the frame's `dynamic_mask`, else the union of its instance
-masks) and DYNAMIC (instances segmented, associated by MOT, tracked and
-estimated as moving objects). With `VioConfig.pipelined` the frontend
-runs two frames ahead of the backend (the instance tracker one frame
-behind its dispatch) and the estimator keeps its steady state on the
-device, so `process` returns the output of an earlier frame, or None;
-`close` drains every frame in flight. Lines, online perception, loop
-closure and the multi-device engine are not ported yet and raise.
+modes: RAW (stereo+IMU, or mono+IMU with `is_stereo` off), NAIVE (the
+background tracker gated by a dynamic mask: the frame's `dynamic_mask`,
+else the union of its instance masks) and DYNAMIC (instances segmented,
+associated by MOT, tracked and estimated as moving objects). With
+`VioConfig.pipelined` the frontend runs two frames ahead of the backend
+(the instance tracker one frame behind its dispatch) and the estimator
+keeps its steady state on the device, so `process` returns the output of
+an earlier frame, or None; `close` drains every frame in flight. Lines,
+online perception, loop closure and the multi-device engine are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -78,9 +79,10 @@ class FrameInput:
 
 class System:
     def __init__(self, cfg: VioConfig, output_prefix: str = "output/run",
-                 device=None, dtype: torch.dtype = torch.float64):
+                 device=None, dtype: Optional[torch.dtype] = None):
         """device: CUDA unless "cpu" is asked for; dtype: the
-        estimator's float type (the tracker works in float32)."""
+        estimator's float type, by default the device's (float32 on the
+        card, float64 on the CPU); the tracker works in float32."""
         for name, item in _TODO.items():
             if getattr(cfg, name):
                 raise NotImplementedError(

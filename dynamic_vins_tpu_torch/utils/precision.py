@@ -1,5 +1,11 @@
 """Device and dtype policy, with full-float32 matmuls on the card.
 
+The estimator's float type follows the device where none is given:
+float32 on the card, float64 on the CPU (`default_dtype`). The JAX
+package gets the same split from its x64 flag: its float64 default is
+canonicalized to float32 on an accelerator with x64 off, and the tests
+turn x64 on for the CPU.
+
 The JAX package traces its solver under float32 matmul precision
 (`precise_jit`) because reduced-precision matmul inputs cost the
 estimator accuracy. The CUDA counterpart of those reduced-precision passes is TF32, which
@@ -38,3 +44,10 @@ def resolve_device(device=None) -> torch.device:
     set_full_float32()
     return dev
 
+
+
+def default_dtype(device) -> torch.dtype:
+    """The estimator's float type on `device` when none is given:
+    float32 on a CUDA device, float64 on the CPU."""
+    return torch.float32 if torch.device(device).type == "cuda" \
+        else torch.float64

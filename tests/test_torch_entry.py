@@ -2,7 +2,8 @@
 the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
 ROADMAP item (NAIVE and DYNAMIC run on the sequential and pipelined
-paths; more than one card raises)."""
+paths, mono+IMU and the extrinsic rotation calibration build; more than
+one card raises)."""
 
 import numpy as np
 import pytest
@@ -92,10 +93,19 @@ def test_unported_modes_raise(mode, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(use_line=True),
-                                dict(mesh=object()),
-                                dict(calibrate_extrinsic_rotation=True),
-                                dict(stereo=False)])
+                                dict(mesh=object())])
 def test_unported_estimator_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Estimator(EstimatorConfig(num_frames=4, **kw), P_BC, Q_BC,
                   device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(stereo=False),
+                                dict(stereo=False, pipelined=True),
+                                dict(calibrate_extrinsic_rotation=True)])
+def test_mono_and_calibration_build(kw):
+    est = Estimator(EstimatorConfig(num_frames=4, **kw), P_BC, Q_BC,
+                    device="cpu")
+    assert est.cfg.stereo == kw.get("stereo", True)
+    assert (est.ex_calib is not None) == \
+        kw.get("calibrate_extrinsic_rotation", False)

@@ -26,7 +26,8 @@ def _port_modules():
 
 
 def test_scan_covers_every_module():
-    """The scans below reach the DYNAMIC slice's modules too."""
+    """The scans below reach the DYNAMIC slice's modules and the mono
+    initialization's too."""
     mods = set(_port_modules())
     for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
@@ -34,7 +35,9 @@ def test_scan_covers_every_module():
               "factors.object_factors", "solver.object_solver",
               "frontend.instance_tracker", "convert", "system", "run",
               "io.image_io", "io.datasets", "io.evaluation",
-              "io.eval_tools"):
+              "io.eval_tools", "frontend.ransac", "estimator.essential",
+              "estimator.initializer", "estimator.ex_rotation",
+              "sim.ba_problems", "sim.objects"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 

@@ -53,7 +53,8 @@ def _run(device, pipelined=False, record=False):
     p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
     q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
     est = Estimator(EstimatorConfig(num_frames=5, lm_capacity=160,
-                                    obs_capacity=1024, pipelined=pipelined),
+                                    obs_capacity=1024, pipelined=pipelined,
+                                    dtype=torch.float64),
                     p_bc, q_bc, device=device)
     est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
                          sim.state_at(seq.frame_times[0])[2].numpy())
@@ -177,8 +178,8 @@ def _object_run(device, frames=5):
     step runs every frame. Returns (manager, the inputs of the step's
     last eager run)."""
     rng = np.random.default_rng(0)
-    im = InstanceManager(InstanceConfig(num_frames=5, max_objects=4),
-                         device=device)
+    im = InstanceManager(InstanceConfig(num_frames=5, max_objects=4,
+                                        dtype=torch.float64), device=device)
     dims = np.array([4.0, 2.0, 1.5])
     pts_obj = rng.uniform(-0.5, 0.5, size=(24, 3)) * dims
     times = np.arange(5) * 0.1
