@@ -111,6 +111,34 @@ Phases (any failure exits non-zero before the result lines):
      uninterrupted estimator, whose graphs were captured long before,
      runs the last 10 again within the same bound, which shows a loaded
      state reaches the captured graphs' buffers.
+ 15. linepoint: points + lines (`VioConfig.use_line`). The slice's
+     scene with 50 world segments 2 m long (centred on
+     `make_landmarks(50, seed=9)`, as tests/test_line_e2e.py draws its
+     40) drawn into both images as bright
+     antialiased strokes 2 px wide, their brightness (45-255) varying
+     along each segment (`draw_strokes`: the tracker's descriptor is the
+     intensity profile along a segment, which a uniform stroke leaves
+     flat); this script's own raster, the card's machine has no cv2.
+     30 frames on the megastep, estimator in float32. Gates: at least 10
+     segments detected in every left image (the port's LSD, equal to
+     OpenCV's, on the host: stage `fe.lsd`); from frame 1 on, on average
+     at least half of a frame's segments carry an id of the frame
+     before, and in every frame at least half do counting the other edge
+     of a segment's stroke (`carried_share`: LSD returns both edges of a
+     stroke, and the reference's greedy matcher carries the second only
+     by chance); at least 5 lines with a valid orth at the end, 60% of them within cos
+     0.99 of the direction of the world segment their newest left
+     observation lies on (tests/test_line_e2e.py:91-104); unaligned ATE
+     < 0.20 m; the track kernel launched twice a frame, no level launch
+     and no plain LK; one megastep replay every steady frame and 3 host
+     syncs a replay. Then 15 frames with `VioConfig.pipelined`: an
+     output for every frame once drained, in order, one pipelined-step
+     replay every steady frame. Then, in float64 at the slice's widths
+     on the scene's feature-domain frames with the segments' projected
+     endpoints (0.3 px noise), a replay of each branch of both steps
+     equal to the eager step: masks identical, positions and line orth
+     within 1e-6. Prints ms/frame, stage means with `fe.lsd`, segments a
+     frame, peak memory, the replays' segments and host syncs.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -159,6 +187,12 @@ MONO_SCALE_TOL = 0.05      # tests/test_mono_vio.py:43-45, Umeyama scale
 MONO_REF_FRAMES = 40       # tests/test_mono_vio.py's protocol
 MONO_REF_FROM = 25
 RESUME_AT = 20             # phase 14 checkpoints after this many frames
+N_SEGMENTS = 50            # world segments (tests/test_line_e2e.py: 40)
+LINE_PIPE_FRAMES = 15      # the pipelined LinePoint run's depth
+LINE_CHECK_FRAMES = 20     # the float64 LinePoint replay check's depth
+MIN_SEGMENTS = 10          # segments a left image
+MIN_LINES = 5              # tests/test_line_e2e.py:88
+LINE_COS = 0.99            # tests/test_line_e2e.py:100-104
 
 
 def fail(msg: str):
@@ -193,6 +227,10 @@ def build_phase():
     for line in build.build_logs.get("lk_level", "").splitlines():
         if "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    # the host line detector of LinePoint (C++, host compiler)
+    t0 = time.perf_counter()
+    build.build("lsd", force=True)
+    print(f"build lsd (host): {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def make_scene(torch, dev, sigma=BLOB_SIGMA_PX, landmarks=N_LANDMARKS,
@@ -546,13 +584,15 @@ def reset_counts(K, graphs):
 
 
 def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
-              use_megastep=True, pipelined=False, dynamic_mask=None):
+              use_megastep=True, pipelined=False, dynamic_mask=None,
+              use_line=False):
     """Drive the System over the slice's first `frames` (all) frames on one
-    path (NAIVE with `dynamic_mask`). Counts (kernel launches, step
-    replays) are set to 0 just before the frames and read just after.
-    Fails on a count, a feature drought, a non-finite output, the ATE
-    gate or (NAIVE) a tracked point inside the mask; returns the launch
-    counts, the positions and the step graph."""
+    path (NAIVE with `dynamic_mask`; LinePoint with `use_line`). Counts
+    (kernel launches, step replays) are set to 0 just before the frames
+    and read just after. Fails on a count, a feature drought, a
+    non-finite output, the ATE gate or (NAIVE) a tracked point inside
+    the mask; returns the launch counts, the positions, the step graph
+    and, LinePoint, each frame's segments and the System."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.ops import lk_level as K
@@ -565,6 +605,7 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     rig = seq.rig
     cfg = slice_config(rig, VioConfig())
     cfg.pipelined = pipelined
+    cfg.use_line = use_line
     if dynamic_mask is not None:
         cfg.slam = SlamMode.NAIVE
     system = System(cfg, output_prefix=str(REPO / "output" /
@@ -578,7 +619,8 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
           f"{cfg.max_cnt}, estimator dtype {est.dtype}, lm_capacity "
           f"{est.cfg.lm_capacity}, obs_capacity {est.cfg.obs_capacity}, "
           f"megastep {use_megastep}, pipelined {pipelined}, LK backend "
-          f"{system.tracker._tracker.backend}, {frames} frames", flush=True)
+          f"{system.tracker._tracker.backend}, lines {use_line}, {frames} "
+          f"frames", flush=True)
     est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
                          sim.state_at(seq.frame_times[0])[2].numpy())
     graph = est._pipe if pipelined else est._mega
@@ -600,7 +642,7 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(K, [graph])
-    outs, frame_ms = [], []
+    outs, frame_ms, line_segs = [], [], []
     for k in range(frames):
         if k == steady_from:
             torch.cuda.synchronize()
@@ -612,6 +654,8 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
                                         imu=imus[k],
                                         dynamic_mask=dynamic_mask))
         frame_ms.append(1e3 * (time.perf_counter() - t0))
+        if use_line:
+            line_segs.append(list(system.line_tracker.prev_segs))
         nfeat = int(system.tracker.valid.sum())
         if dynamic_mask is not None:
             xy = system.tracker.pts[system.tracker.valid].astype(int)
@@ -668,7 +712,10 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
           json.dumps([round(t, 2) for t in frame_ms]), flush=True)
     if not ate < ATE_GATE_M:
         fail(f"{name}: ATE {ate} m >= {ATE_GATE_M} m")
-    return dict(launches=launches, p=p, graph=graph)
+    out = dict(launches=launches, p=p, graph=graph)
+    if use_line:
+        out.update(segs=line_segs, system=system)
+    return out
 
 
 def make_dynamic(torch, dev, seq, sigma=BLOB_SIGMA_PX):
@@ -1494,6 +1541,245 @@ def graph_check_phase(torch, dev, seq):
         fail(f"pipelined parts from the sequential estimator by {gap} m")
 
 
+def line_segments_world():
+    """The LinePoint scene's world segments (s_w, e_w [N,3]) and the
+    feature-domain helper that projects them."""
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+
+    return frontend_sim.make_line_segments(N_SEGMENTS, seed=9)
+
+
+def draw_strokes(img, seq, k, cam, s_w, e_w):
+    """`img` [H,W] with the world segments drawn in camera `cam` of frame
+    k as bright antialiased strokes 2 px wide at half height (3 px
+    edge ramps: a hard-edged stroke makes the profile along a detected
+    edge follow the edge's subpixel position instead of the stroke),
+    blended over the image. A stroke's brightness (45-255) varies along it with
+    the position on the world segment, 1-3 cosine periods with
+    amplitudes and phases of its own (seeded): a real edge carries
+    texture, and the line tracker's descriptor is the intensity profile
+    along the segment, which a uniform stroke leaves flat and a single
+    period makes alike from segment to segment. Segments with an end closer than 0.5 m
+    are left out."""
+    import numpy as np
+    import torch
+
+    from dynamic_vins_tpu_torch.geometry import camera, lie_np
+
+    rig = seq.rig
+    pr, qr = rig.right_extrinsics()
+    p_bc, q_bc = ((rig.p_bc, rig.q_bc), (pr, qr))[cam]
+    p_cw, q_cw = lie_np.pose_inverse(*lie_np.pose_compose(
+        seq.gt_p[k].numpy(), seq.gt_q[k].numpy(), p_bc.numpy(),
+        q_bc.numpy()))
+    out = np.array(img, np.float64)
+    H, W = out.shape
+    for i, (a, b) in enumerate(zip(s_w, e_w)):
+        pc = np.stack([lie_np.pose_transform_point(p_cw, q_cw, x)
+                       for x in (a, b)])
+        if (pc[:, 2] < 0.5).any():
+            continue
+        uv = camera.pixel_from_normalized(
+            rig.intr, torch.tensor(pc[:, :2] / pc[:, 2:3])).numpy()
+        lo = np.floor(np.clip(uv.min(0) - 4, 0, [W - 1, H - 1])).astype(int)
+        hi = np.ceil(np.clip(uv.max(0) + 4, 0, [W - 1, H - 1])).astype(int)
+        if (hi <= lo).any():
+            continue
+        yy, xx = np.mgrid[lo[1]:hi[1] + 1, lo[0]:hi[0] + 1]
+        d = uv[1] - uv[0]
+        t_img = ((xx - uv[0, 0]) * d[0] + (yy - uv[0, 1]) * d[1]) \
+            / max(float(d @ d), 1e-12)
+        t = np.clip(t_img, 0.0, 1.0)
+        dist = np.hypot(xx - uv[0, 0] - t * d[0], yy - uv[0, 1] - t * d[1])
+        # the image parameter back to the world segment's (perspective)
+        tw = t * pc[0, 2] / (t * pc[0, 2] + (1 - t) * pc[1, 2])
+        rng = np.random.default_rng(1000 + i)
+        amp, phase = rng.normal(size=3), rng.uniform(size=3)
+        wave = sum(amp[j] * np.cos(2 * np.pi * ((j + 1) * tw + phase[j]))
+                   for j in range(3)) / np.abs(amp).sum()
+        level = 150.0 + 105.0 * wave
+        w = np.clip((1.0 - dist) / 3.0 + 0.5, 0.0, 1.0)
+        sub = out[lo[1]:hi[1] + 1, lo[0]:hi[0] + 1]
+        sub[:] = sub * (1 - w) + w * level
+    return np.clip(out, 0.0, 255.0)
+
+
+def carried_share(prev, cur, strokes):
+    """The share of a frame's segments that carry an id of the frame
+    before. With `strokes`, a segment also counts when the other edge of
+    its stroke does: LSD returns the two edges of a bright stroke as two
+    antiparallel segments with the same intensity profile, and the
+    tracker's greedy matcher (the JAX package's) gives each previous
+    segment to one current one, so the second edge keeps its id only
+    when its best match is the other previous edge."""
+    import numpy as np
+
+    ids = {p.id for p in prev}
+
+    def edges(a):
+        da = np.array([a.ex - a.sx, a.ey - a.sy])
+        out = [a]
+        for b in cur:
+            db = np.array([b.ex - b.sx, b.ey - b.sy])
+            if b is not a and da @ db < -0.995 * np.linalg.norm(da) \
+                    * np.linalg.norm(db) \
+                    and np.linalg.norm(a.center - b.center) < 6.0:
+                out.append(b)
+        return out if strokes else [a]
+
+    return sum(any(e.id in ids for e in edges(s)) for s in cur) \
+        / max(len(cur), 1)
+
+
+def line_truth_cos(est, seq, s_w, e_w):
+    """For each line with a valid orth: |cos| between its direction and
+    that of the world segment its newest left observation lies on (the
+    least mean endpoint distance to the segment's projected line, in
+    that frame's true left camera)."""
+    import numpy as np
+    import torch
+
+    from dynamic_vins_tpu_torch.geometry import lie_np, lines
+
+    lm = est.lines
+    ft = seq.frame_times.numpy()
+    rig = seq.rig
+    out = []
+    for slot in np.flatnonzero(lm.active & lm.orth_valid):
+        f = int(np.flatnonzero(lm.has_obs[slot])[-1])
+        k = int(np.argmin(np.abs(ft - est.timestamps[f])))
+        p_cw, q_cw = lie_np.pose_inverse(*lie_np.pose_compose(
+            seq.gt_p[k].numpy(), seq.gt_q[k].numpy(), rig.p_bc.numpy(),
+            rig.q_bc.numpy()))
+        best, best_d = None, np.inf
+        for a, b in zip(s_w, e_w):
+            pa = lie_np.pose_transform_point(p_cw, q_cw, a)
+            pb = lie_np.pose_transform_point(p_cw, q_cw, b)
+            n = np.cross(pa, pb)
+            den = max(np.hypot(n[0], n[1]), 1e-12)
+            d = (abs(n @ lm.s[slot, f]) + abs(n @ lm.e[slot, f])) / den
+            if d < best_d:
+                best, best_d = b - a, d
+        _, d_est = lines.orth_to_plucker(torch.tensor(lm.orth[slot]))
+        d_est = d_est.numpy()
+        out.append(abs(float(d_est @ best)) / (np.linalg.norm(d_est)
+                                               * np.linalg.norm(best)))
+    return out
+
+
+def linepoint_check(torch, dev, seq):
+    """Phase 15's float64 replay check: both steps with lines at the
+    slice's widths on the scene's feature-domain frames, each branch's
+    replay against the eager step."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.estimator import step_check
+    from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
+                                                            EstimatorConfig)
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import obs_capacity
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    cfg = VioConfig()
+    F = cfg.num_frames
+    s_w, e_w = line_segments_world()
+    frames = frontend_sim.make_frames(seq, max_feats=N_FEAT,
+                                      pixel_noise=0.5)[:LINE_CHECK_FRAMES]
+    frames = [(f._replace(lines=frontend_sim.line_obs_for_frame(
+        seq, k, s_w, e_w, np.random.default_rng(100 + k))), imu)
+        for k, (f, imu) in enumerate(frames)]
+    pr, qr = seq.rig.right_extrinsics()
+    p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
+    q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
+    res = {}
+    for pipelined in (False, True):
+        est = Estimator(EstimatorConfig(
+            num_frames=F, obs_capacity=obs_capacity(cfg),
+            pipelined=pipelined, use_line=True, dtype=torch.float64),
+            p_bc, q_bc, device=dev)
+        est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                             sim.state_at(seq.frame_times[0])[2].numpy())
+        outs = [est.process_frame(f, imu) for f, imu in frames]
+        outs = [o for o in outs if o is not None] + est.flush()
+        graph = est._pipe if pipelined else est._mega
+        nl = int(est.lines.orth_valid.sum())
+        if est.failed or len(outs) != LINE_CHECK_FRAMES or nl < MIN_LINES \
+                or sum(graph.replays.values()) != LINE_CHECK_FRAMES - F:
+            fail(f"linepoint check (pipelined {pipelined}): failed "
+                 f"{est.failed}, {len(outs)} outputs, {nl} lines, "
+                 f"{graph.replays} replays")
+        for key in (True, False):
+            eager = graph.fn(key, graph.inputs)
+            replay = graph.replay(key)
+            agree = step_check.agreement(est._consts, eager, replay)
+            res[f"pipelined {pipelined} keyframe {key}"] = dict(
+                agree, segments=graph.segments(key),
+                host_syncs=graph.host_syncs(key))
+            if not (agree["masks_equal"]
+                    and agree["pos_m"] <= REPLAY_POS_ATOL_M
+                    and agree["orth"] <= REPLAY_POS_ATOL_M):
+                fail(f"LinePoint replay differs from the eager step "
+                     f"(pipelined {pipelined}, keyframe {key}): {agree}")
+            if graph.host_syncs(key) != 3:
+                fail(f"LinePoint step (pipelined {pipelined}, keyframe "
+                     f"{key}): {graph.host_syncs(key)} host syncs a "
+                     f"replay, expected 3")
+        del est, graph
+        torch.cuda.empty_cache()
+    print("linepoint check: float64, replay vs eager:", json.dumps(res),
+          flush=True)
+
+
+def linepoint_phase(torch, dev, seq, imgs, imus):
+    """Phase 15 (see the module docstring)."""
+    import numpy as np
+
+    s_w, e_w = line_segments_world()
+    t0 = time.perf_counter()
+    limgs = [tuple(draw_strokes(imgs[k][c], seq, k, c, s_w, e_w)
+                   for c in (0, 1)) for k in range(FRAMES)]
+    print(f"linepoint: {N_SEGMENTS} world segments drawn into "
+          f"{FRAMES} stereo frames in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    r = run_slice(torch, dev, seq, limgs, imus, "linepoint", use_line=True)
+    segs, system = r["segs"], r["system"]
+    est = system.estimator
+    counts = [len(x) for x in segs]
+    carried = [carried_share(segs[k - 1], segs[k], False)
+               for k in range(1, FRAMES)]
+    strokes = [carried_share(segs[k - 1], segs[k], True)
+               for k in range(1, FRAMES)]
+    cos = line_truth_cos(est, seq, s_w, e_w)
+    good = sum(c > LINE_COS for c in cos)
+    print(f"linepoint: segments a left image {json.dumps(counts)}, share "
+          f"carrying an id of the frame before "
+          f"{json.dumps([round(c, 3) for c in carried])} (mean "
+          f"{sum(carried) / len(carried):.3f}), counting the stroke's other "
+          f"edge {json.dumps([round(c, 3) for c in strokes])}, lines with a "
+          f"valid orth {len(cos)}, within cos {LINE_COS} of their world "
+          f"segment {good}", flush=True)
+    if min(counts) < MIN_SEGMENTS:
+        fail(f"linepoint: a left image with {min(counts)} segments "
+             f"(< {MIN_SEGMENTS})")
+    if sum(carried) / len(carried) < 0.5 or min(strokes) < 0.5:
+        fail(f"linepoint: segments carrying an id of the frame before: "
+             f"mean {sum(carried) / len(carried):.2f}, a frame's strokes "
+             f"{min(strokes):.2f} (gates 0.5)")
+    if len(cos) < MIN_LINES or good < 0.6 * len(cos):
+        fail(f"linepoint: {len(cos)} lines with a valid orth, {good} "
+             f"within cos {LINE_COS} of the truth")
+    if any(r["graph"].host_syncs(k) != 3 for k in r["graph"].chains):
+        fail("linepoint: a megastep replay with other than 3 host syncs")
+    launches = r["launches"]
+    del r, system, est
+    pipe = run_slice(torch, dev, seq, limgs, imus, "linepoint-pipelined",
+                     frames=LINE_PIPE_FRAMES, pipelined=True, use_line=True)
+    linepoint_check(torch, dev, seq)
+    return dict(launches={n: launches[n] + pipe["launches"][n]
+                          for n in ("lk_level", "lk_track")})
+
+
 def main():
     try:
         import torch
@@ -1546,9 +1832,11 @@ def main():
     mono = mono_phase(torch, dev, seq, imgs, imus)
     mono_reference_phase(torch, dev)
     resume_phase(torch, dev, seq)
-    # launches of every main-path phase (4, 6-13), each counted from 0
+    lines = linepoint_phase(torch, dev, seq, imgs, imus)
+    # launches of every main-path phase (4, 6-13, 15), each counted from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
-    for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono)):
+    for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono),
+              lines):
         launches["lk_level"] += r["launches"]["lk_level"]
         launches["lk_track"] += r["launches"]["lk_track"]
     for r in (dyn["launches"], dyn_pipe["launches"], cli):

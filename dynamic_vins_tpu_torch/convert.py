@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dynamic_vins_tpu_torch.factors.line_factor import LineObs
 from dynamic_vins_tpu_torch.factors.object_factors import ObjectWindow
 from dynamic_vins_tpu_torch.factors.prior import MarginalPrior
 from dynamic_vins_tpu_torch.factors.projection import ProjObs
@@ -77,13 +78,24 @@ def proj_obs(d, dtype=torch.float64, device="cpu") -> ProjObs:
                      for k in ProjObs._fields))
 
 
+def line_obs(d, dtype=torch.float64, device="cpu") -> LineObs:
+    return LineObs(*(_f(d[k], dtype, device) if k in ("s", "e")
+                     else _x(d[k], device) for k in LineObs._fields))
+
+
 def ba_problem(d, dtype=torch.float64, device="cpu") -> BAProblem:
+    """A BA problem; its line table and line mask where `d` has them."""
+    lines = isinstance(d.get("line_obs"), dict)
     return BAProblem(obs=proj_obs(d["obs"], dtype, device),
                      pres=preintegration(d["pres"], dtype, device),
                      imu_valid=_x(d["imu_valid"], device),
                      prior=marginal_prior(d["prior"], dtype, device),
                      lm_valid=_x(d["lm_valid"], device),
-                     fixed_cols=_x(d["fixed_cols"], device))
+                     fixed_cols=_x(d["fixed_cols"], device),
+                     line_obs=line_obs(d["line_obs"], dtype, device)
+                     if lines else None,
+                     line_valid=_x(d["line_valid"], device)
+                     if lines else None)
 
 
 def object_window(d, dtype=torch.float64, device="cpu") -> ObjectWindow:

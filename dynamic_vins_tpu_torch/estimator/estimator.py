@@ -7,7 +7,9 @@ essential matrix, SfM and the visual-inertial alignment of
 marginalization, window slide and failure detection; also the hand-eye
 calibration of the camera rotation, IMU-rate fast prediction, the loop
 correction, checkpoints (the JAX package's `.npz` keys), reset and
-runtime sensor changes.
+runtime sensor changes. LinePoint mode (`use_line`) adds world-frame
+line landmarks (`line_manager.py`): a line-only refinement, then the
+joint solve with their 4-dof blocks, on every path.
 
 Split: this class is the frame-granularity host orchestrator. The
 window state, landmark bookkeeping and raw IMU buffers are host numpy;
@@ -39,6 +41,9 @@ from dynamic_vins_tpu_torch.estimator import triangulation
 from dynamic_vins_tpu_torch.estimator.ex_rotation import ExRotationCalibrator
 from dynamic_vins_tpu_torch.estimator.feature_manager import (
     DEFAULT_DEPTH, FeatureManager)
+from dynamic_vins_tpu_torch.estimator.line_manager import (
+    LineManager, plucker_to_orth_np)
+from dynamic_vins_tpu_torch.factors import line_factor
 from dynamic_vins_tpu_torch.factors import prior as prior_factor
 from dynamic_vins_tpu_torch.factors import projection
 from dynamic_vins_tpu_torch.geometry import lie, lie_np
@@ -52,8 +57,10 @@ from dynamic_vins_tpu_torch.utils.step_graph import StepGraph
 # ROADMAP.md names for the parts of the JAX estimator not ported yet
 _TODO = {
     "mesh": "queue 1 item 18 (multi-GPU)",
-    "use_line": "queue 1 item 13 (LinePoint)",
 }
+
+# RemoveLineOutlier: mean endpoint-to-line distance, normalized plane
+LINE_OUTLIER_THRESH = 5.0 / 460.0
 
 
 @dataclass
@@ -80,7 +87,10 @@ class EstimatorConfig:
     pipelined: bool = False
     use_plane_constraint: bool = False
     dynamic: bool = False
-    use_line: bool = False
+    use_line: bool = False          # LinePoint mode (points + lines)
+    line_capacity: int = 64
+    line_obs_capacity: int = 512
+    line_weight: float = 1.0        # line factors against the points
     mesh: object = None
     # None: the device's (float32 on the card, float64 on the CPU)
     dtype: Optional[torch.dtype] = None
@@ -176,11 +186,8 @@ def triangulate_slots(flat, anchors, tri_f, stereo_ok, two_ok, k, F,
     return d, ok
 
 
-def solve_score(state, inv_depth, problem: gn.BAProblem,
-                config: gn.SolverConfig):
-    """LM solve + per-landmark mean reprojection error (normalized
-    plane) -> (state, inv_depth, final cost, scores [L])."""
-    st, dep, info = gn.solve(state, inv_depth, problem, config)
+def _point_scores(st, dep, problem: gn.BAProblem):
+    """Per-landmark mean reprojection error on the normalized plane [L]."""
     obs = problem.obs
     err = torch.linalg.vector_norm(
         projection.residual_only(st, dep, obs, sqrt_info=1.0), dim=-1)
@@ -188,7 +195,32 @@ def solve_score(state, inv_depth, problem: gn.BAProblem,
     w = (obs.valid & problem.lm_valid[obs.lm]).to(err.dtype)
     ssum = gn._segment_sum(err * w, obs.lm, L)
     n = gn._segment_sum(w, obs.lm, L)
-    return st, dep, info.final_cost, ssum / torch.clamp_min(n, 1.0)
+    return ssum / torch.clamp_min(n, 1.0)
+
+
+def solve_score(state, inv_depth, problem: gn.BAProblem,
+                config: gn.SolverConfig):
+    """LM solve + per-landmark mean reprojection error (normalized
+    plane) -> (state, inv_depth, final cost, scores [L])."""
+    st, dep, info = gn.solve(state, inv_depth, problem, config)
+    return st, dep, info.final_cost, _point_scores(st, dep, problem)
+
+
+def solve_score_lines(state, inv_depth, problem: gn.BAProblem, line_orth,
+                      config: gn.SolverConfig):
+    """LinePoint's solve: the line-only refinement with the poses fixed
+    (the reference's OptimizationWithOnlyLine), the joint LM with the
+    line blocks, per-landmark and per-line scores. The problem carries
+    the line table -> (state, inv_depth, cost, scores [L], orth [Lc,4],
+    line scores [Lc])."""
+    orth0 = line_factor.refine_orth(state, line_orth, problem.line_obs,
+                                    problem.line_valid,
+                                    huber_delta=config.huber_delta)
+    st, dep, orth, info = gn.solve(state, inv_depth, problem, config,
+                                   line_orth=orth0)
+    return (st, dep, info.final_cost, _point_scores(st, dep, problem), orth,
+            line_factor.line_scores(st, orth, problem.line_obs,
+                                    problem.line_valid))
 
 
 def marg_old_shifted(state, inv_depth, problem, drop_lm, pt0, config):
@@ -253,40 +285,59 @@ class StepConsts(NamedTuple):
     solver: gn.SolverConfig
     fixed: torch.Tensor          # [Dc] bool, tangent dims held fixed
     pose0: torch.Tensor          # [Dc] bool, pose 0's dims
+    use_line: bool = False       # LinePoint: line sections in the buffers
+    line_capacity: int = 64
+    line_obs_capacity: int = 512
+
+    def _line_sections(self, *names):
+        """The line sections of a layout, empty without lines: l_of and
+        l_oi are the observation rows, the rest are per line slot."""
+        if not self.use_line:
+            return []
+        Lc, LoC = self.line_capacity, self.line_obs_capacity
+        size = {"l_of": 4 * LoC, "l_oi": 3 * LoC, "l_ov": LoC,
+                "l_orth": 4 * Lc, "l_orth_new": 4 * Lc, "orth": 4 * Lc}
+        return [(n, size.get(n, Lc)) for n in names]
 
     def mega_layouts(self):
         """(float, int, output) layouts of the sequential megastep."""
         F, L, Co, C = (self.num_frames, self.lm_capacity,
                        self.obs_capacity, self.imu_per_edge)
         S = sum(layout._SIZES(F))
+        ls = self._line_sections
         fl = StepLayout([("flat", S), ("acc", 3 * (C + 1)),
                          ("gyr", 3 * (C + 1)), ("dts", C), ("pnp", 6 * L),
                          ("tri_f", 6 * L), ("of", 9 * Co), ("inv", L),
-                         ("pt0", 3 * L)])
+                         ("pt0", 3 * L)] + ls("l_of", "l_orth"))
         il = StepLayout([("oi", 4 * Co), ("anchors", L), ("stereo", L),
                          ("two", L), ("tri_req", L), ("solv", L),
                          ("lmv", L), ("drop", L), ("ov", Co),
-                         ("imu_n", F - 1), ("n_e", 1)])
+                         ("imu_n", F - 1), ("n_e", 1)]
+                        + ls("l_oi", "l_ov", "l_lv"))
         ol = StepLayout([("flat", S), ("dep", L), ("new_tri", L),
-                         ("bad", L), ("new_inv", L), ("re_ok", L),
-                         ("cost", 1)])
+                         ("bad", L), ("new_inv", L), ("re_ok", L)]
+                        + ls("orth", "lscores") + [("cost", 1)])
         return fl, il, ol
 
     def pipe_layouts(self):
         """(float, int, output) layouts of the pipelined megastep."""
         F, L, C = self.num_frames, self.lm_capacity, self.imu_per_edge
         S = sum(layout._SIZES(F))
+        ls = self._line_sections
         fl = StepLayout([("acc", 3 * (C + 1)), ("gyr", 3 * (C + 1)),
                          ("dts", C), ("acc_m", 3 * (C + 1)),
                          ("gyr_m", 3 * (C + 1)), ("dts_m", C),
                          ("tri_f", 6 * L), ("obs_new", 8 * L),
-                         ("pt0", 3 * L), ("pt_a", 2 * L), ("pt_c", 2 * L)])
+                         ("pt0", 3 * L), ("pt_a", 2 * L), ("pt_c", 2 * L)]
+                        + ls("l_of", "l_orth_new"))
         il = StepLayout([(n, L) for n in (
             "anchors", "stereo", "two", "tri_req", "obs_ok", "cur_ok",
             "hasobs1", "reset", "kill", "ho_k", "hr_k", "emit")]
-            + [("imu_n", F - 1), ("n_e", 1), ("n_m", 1)])
+            + [("imu_n", F - 1), ("n_e", 1), ("n_m", 1)]
+            + ls("l_oi", "l_ov", "l_reset", "l_kill"))
         ol = StepLayout([("flat", S), ("dep", L), ("new_tri", L),
-                         ("bad", L), ("cost", 1), ("inv", L), ("dv", L)])
+                         ("bad", L), ("cost", 1), ("inv", L), ("dv", L)]
+                        + ls("orth", "lscores", "l_alive"))
         return fl, il, ol
 
 
@@ -300,6 +351,15 @@ def _step_problem(c: StepConsts, oi, of, ov, pres, imu_valid, prior,
     return gn.BAProblem(obs=projection.unpack_obs(oi, of, ov), pres=pres,
                         imu_valid=imu_valid, prior=prior,
                         lm_valid=lm_valid, fixed_cols=fixed)
+
+
+def _step_lines(c: StepConsts, f, i, b):
+    """(LineObs, orth [Lc,4], line mask [Lc]) of a sequential step's
+    buffers."""
+    LoC, Lc = c.line_obs_capacity, c.line_capacity
+    return (line_factor.unpack_obs(i("l_oi", (LoC, 3)), f("l_of", (LoC, 4)),
+                                   b("l_ov")),
+            f("l_orth", (Lc, 4)), b("l_lv"))
 
 
 def _imu_valid(c: StepConsts, imu_n):
@@ -347,10 +407,20 @@ def megastep(is_keyframe: bool, inputs, c: StepConsts):
     oi, of = i("oi", (Co, 4)), f("of", (Co, 9))
     ov2 = b("ov") & lm_valid[oi[:, 3]]
     imu_valid = _imu_valid(c, i("imu_n"))
-    st, dep, cost, scores = solve_score(
-        layout.WindowState.unpack(flat2, F), inv_depth,
-        _step_problem(c, oi, of, ov2, pres2, imu_valid, prior, lm_valid),
-        c.solver)
+    problem = _step_problem(c, oi, of, ov2, pres2, imu_valid, prior,
+                            lm_valid)
+    state2 = layout.WindowState.unpack(flat2, F)
+    line_out = []
+    if c.use_line:
+        l_obs, l_orth, l_lv = _step_lines(c, f, i, b)
+        st, dep, cost, scores, orth, lscores = solve_score_lines(
+            state2, inv_depth, problem._replace(line_obs=l_obs,
+                                                line_valid=l_lv),
+            l_orth, c.solver)
+        line_out = [orth.reshape(-1), lscores]
+    else:
+        st, dep, cost, scores = solve_score(state2, inv_depth, problem,
+                                            c.solver)
 
     # outlier + negative-depth gating before the marginalization (the
     # multi-dispatch path prunes the pools between the two)
@@ -368,7 +438,7 @@ def megastep(is_keyframe: bool, inputs, c: StepConsts):
         new_inv, re_ok = dep, torch.zeros_like(new_tri)
     dt = dep.dtype
     out = torch.cat([st.pack(), dep, new_tri.to(dt), bad.to(dt), new_inv,
-                     re_ok.to(dt), cost[None]])
+                     re_ok.to(dt)] + line_out + [cost[None]])
     return pres2, prior_out, out
 
 
@@ -395,6 +465,7 @@ class PipeState(NamedTuple):
     pres: pre.Preintegration     # [F-1] edges
     prior: prior_factor.MarginalPrior
     obs: tuple   # pools [L,F,2] pt, vel, pt_right, vel_right; [L,F] masks
+    lines: tuple = ()   # LinePoint: (orth [Lc,4], alive [Lc])
 
 
 def _with_col(t, j, col):
@@ -490,10 +561,33 @@ def megastep_pipelined(is_keyframe: bool, inputs, c: StepConsts):
     lm_valid = alive & dv2 & b("obs_ok")
     ov2 = ov & lm_valid[oi[:, 3]]
     imu_valid = _imu_valid(c, i("imu_n"))
-    st, dep, cost, scores = solve_score(
-        layout.WindowState.unpack(flat2, F), inv2,
-        _step_problem(c, oi, of, ov2, pres2, imu_valid, res.prior,
-                      lm_valid), c.solver)
+    problem = _step_problem(c, oi, of, ov2, pres2, imu_valid, res.prior,
+                            lm_valid)
+    state2 = layout.WindowState.unpack(flat2, F)
+    lines_out, line_out = (), []
+    if c.use_line:
+        # line lifecycle deltas -> the resident orth and alive mask; a
+        # slot killed by the slide and triangulated again in one frame
+        # is reset with the host's fresh orth (reset wins)
+        l_reset, l_kill = b("l_reset"), b("l_kill")
+        l_orth0, l_alive0 = res.lines
+        l_alive = (l_alive0 & ~l_kill) | l_reset
+        l_orth = torch.where(l_reset[:, None],
+                             f("l_orth_new", (c.line_capacity, 4)), l_orth0)
+        l_oi = i("l_oi", (c.line_obs_capacity, 3))
+        l_obs = line_factor.unpack_obs(l_oi, f("l_of", (
+            c.line_obs_capacity, 4)), b("l_ov") & l_alive[l_oi[:, 2]])
+        st, dep, cost, scores, orth, lscores = solve_score_lines(
+            state2, inv2, problem._replace(line_obs=l_obs,
+                                           line_valid=l_alive),
+            l_orth, c.solver)
+        # the device's line outlier gate (the host applies the same
+        # removal when it drains this frame)
+        l_alive2 = l_alive & ~(lscores > LINE_OUTLIER_THRESH)
+        lines_out = (orth, l_alive2)
+        line_out = [orth.reshape(-1), lscores, l_alive2.to(dt)]
+    else:
+        st, dep, cost, scores = solve_score(state2, inv2, problem, c.solver)
 
     bad = ((scores > c.outlier_thresh) | (dep < 1e-4)) & lm_valid
     alive2 = alive & ~bad
@@ -544,9 +638,9 @@ def megastep_pipelined(is_keyframe: bool, inputs, c: StepConsts):
     obs2 = tuple(slide_tbl(t) for t in
                  (pt_r, vel_r, ptr_r, velr_r, ho_r, hr_r))
     out = torch.cat([st.pack(), dep, new_tri.to(dt), bad.to(dt), cost[None],
-                     inv4, dv4.to(dt)])
+                     inv4, dv4.to(dt)] + line_out)
     return PipeState(st4.pack(), inv4, dv4, alive2, pres4, prior_out,
-                     obs2), out
+                     obs2, lines_out), out
 
 
 def _imu_midpoint(p, q, v, ba, bg, acc0, gyr0, acc1, gyr1, dt):
@@ -667,10 +761,15 @@ class Estimator:
         self._pipe_tri_hist = deque(maxlen=2)
         # pipelined: the timestamps of the host mirror's window slots
         self._pipe_state_ts = None
+        # pipelined LinePoint: the line mask sent with the last step
+        self._pipe_lmask_prev = None
         # StageTimer for the steady state's stages (be.*), or None
         self.timer = None
-        # LinePoint's landmark manager (ROADMAP queue 1 item 13)
-        self.lines = None
+        # LinePoint's line landmarks
+        self.lines = LineManager(
+            num_frames=F, capacity=config.line_capacity,
+            obs_capacity=config.line_obs_capacity) \
+            if config.use_line else None
         self.ex_calib = ExRotationCalibrator() \
             if config.calibrate_extrinsic_rotation else None
         # per-object backend (DYNAMIC), in the estimator's dtype
@@ -690,11 +789,13 @@ class Estimator:
         config, F = self.cfg, self.cfg.num_frames
         self._solver_cfg = gn.SolverConfig(
             max_iters=config.max_iters, use_imu=config.use_imu,
-            huber_delta=config.huber_delta)
+            huber_delta=config.huber_delta, line_weight=config.line_weight)
         c = StepConsts(F, config.lm_capacity, config.obs_capacity,
                        config.imu_per_edge, config.use_imu,
                        config.max_depth, config.outlier_thresh, self.noise,
-                       self._solver_cfg, self._fixed, self._pose0_mask)
+                       self._solver_cfg, self._fixed, self._pose0_mask,
+                       config.use_line, config.line_capacity,
+                       config.line_obs_capacity)
         self._consts = c
         self._mega = StepGraph(functools.partial(megastep, c=c),
                                self.device, keys=(True, False))
@@ -778,8 +879,10 @@ class Estimator:
                       instances=None) -> Optional[OdometryOut]:
         """Ingest one frame (+ the IMU since the previous frame).
 
-        instances: the frame's per-object frontend output (DYNAMIC), in
-        the `InstanceManager.push_frame` format."""
+        frame.lines (LinePoint): {line id: (s_l, e_l, s_r|None, e_r|None)}
+        normalized endpoints (z = 1). instances: the frame's per-object
+        frontend output (DYNAMIC), in the `InstanceManager.push_frame`
+        format."""
         cfg = self.cfg
         F = cfg.num_frames
         k = self.frame_count
@@ -797,6 +900,8 @@ class Estimator:
         if (self.ex_calib is not None and self.ex_calib.result is None
                 and k > 0 and cfg.use_imu):
             self._calibrate_ex_rotation(k)
+        if self.lines is not None and frame.lines:
+            self.lines.add_lines(k, frame.lines)
 
         if cfg.use_megastep and self.initialized and k == F - 1:
             if cfg.pipelined:
@@ -817,6 +922,8 @@ class Estimator:
             self._prepare(k)
 
         self._triangulate_new(k)
+        if self.lines is not None:
+            self.lines.triangulate(self.state, k)
 
         if not self.initialized and k == F - 1:
             self._initialize()
@@ -883,6 +990,12 @@ class Estimator:
             oi, of, ov, lm_valid_base = fm.build_obs_packed(
                 extra_mask=tri_req)
             drop_base = fm.active & (fm.start_frame == 0) & fm.depth_valid
+            lmask = None
+            if self.lines is not None:
+                # new lines against the window's solved frames (slot k
+                # is not solved yet); their rows ride the same buffers
+                self.lines.triangulate(self.state, k - 1)
+                l_oi, l_of, l_ov, lmask = self.lines.build_obs_packed()
             slot = self._mega_io.next()
             fb, ib = slot.f.numpy(), slot.i.numpy()
             for name, a in (("flat", self.state.pack()),
@@ -900,6 +1013,12 @@ class Estimator:
                             ("ov", ov), ("imu_n", self.imu_n),
                             ("n_e", self.imu_n[e])):
                 il.put(ib, name, a)
+            if lmask is not None:
+                fl.put(fb, "l_of", l_of)
+                fl.put(fb, "l_orth", self.lines.orth)
+                il.put(ib, "l_oi", l_oi)
+                il.put(ib, "l_ov", l_ov)
+                il.put(ib, "l_lv", lmask)
 
         with self._st("be.step"):
             pres2, prior_out, out = self._mega(
@@ -925,6 +1044,10 @@ class Estimator:
         fm.set_depths(dep, valid_update=lm_valid_base
                       | (new_tri & solvable_if_tri))
         fm.remove_outliers(ol.get(ob, "bad") > 0.5)
+        if lmask is not None:
+            self.lines.set_orth(ol.get(ob, "orth").reshape(-1, 4),
+                                updated_mask=lmask)
+            self.lines.remove_outliers(ol.get(ob, "lscores"))
         self._check_failure()
         self.prior = prior_out
         if is_keyframe:
@@ -943,12 +1066,21 @@ class Estimator:
             self._pres, self.prior,
             (self._f(fm.pt[:, :, :2]), self._f(fm.vel[:, :, :2]),
              self._f(fm.pt_right[:, :, :2]), self._f(fm.vel_right[:, :, :2]),
-             self._i(fm.has_obs.copy()), self._i(fm.has_right.copy())))
+             self._i(fm.has_obs.copy()), self._i(fm.has_right.copy())),
+            self._pipe_lines_prime())
         self._pipe_q.clear()
         self._pipe_tri_hist.clear()
         # at mode entry the mirror is fresh: its slots hold the solved
         # frames at the current timestamps
         self._pipe_state_ts = self.timestamps.copy()
+
+    def _pipe_lines_prime(self):
+        """LinePoint: the resident (orth, alive) from the host tables."""
+        if self.lines is None:
+            return ()
+        lmask = self.lines.active & self.lines.orth_valid
+        self._pipe_lmask_prev = lmask.copy()
+        return self._f(self.lines.orth), self._i(lmask.copy())
 
     def _megastep_frame_pipelined(self, is_keyframe: bool, instances=None):
         """Dispatch this frame's step against the device residents, after
@@ -972,13 +1104,14 @@ class Estimator:
             if self.failed:
                 return out
         with self._st("be.pack"):
-            slot = self._pipe_pack(is_keyframe, fl, il)
+            slot, lmask = self._pipe_pack(is_keyframe, fl, il)
         with self._st("be.step"):
             self._pipe_res, dev_out = self._pipe(
                 is_keyframe, (slot.f, slot.i, self._pipe_res))
             self._pipe_io.send(slot, dev_out)
         self._pipe_q.append((slot, float(self.timestamps[k]),
-                             bool(is_keyframe), self.timestamps.copy()))
+                             bool(is_keyframe), self.timestamps.copy(),
+                             lmask))
         if self.im is not None:
             if instances is not None:
                 self._process_instances_pipelined(instances)
@@ -992,7 +1125,8 @@ class Estimator:
 
     def _pipe_pack(self, is_keyframe: bool, fl, il):
         """The next host slot, filled with this frame's step inputs: the
-        host's hints and the raw samples."""
+        host's hints and the raw samples. Returns (slot, the line mask
+        sent, or None without lines)."""
         cfg = self.cfg
         fm = self.fm
         F = cfg.num_frames
@@ -1048,18 +1182,48 @@ class Estimator:
                 ("imu_n", self.imu_n), ("n_e", self.imu_n[e]),
                 ("n_m", n_m)):
             il.put(ib, name, a)
-        return slot
+        lmask = None
+        if self.lines is not None:
+            # new lines against timestamp-aligned poses (the mirror lags
+            # up to 2 frames; the solve's line-only refinement corrects a
+            # slightly stale start), then the mask's change since the
+            # last step as lifecycle deltas
+            win = self._aligned_window_poses()
+            if win is None:
+                win = (self.state.p.copy(), self.state.q.copy())
+            st = self.state._replace(p=win[0], q=win[1])
+            self.lines.triangulate(st, k)
+            l_oi, l_of, l_ov, lmask = self.lines.build_obs_packed()
+            prev = self._pipe_lmask_prev
+            self._pipe_lmask_prev = lmask.copy()
+            fl.put(fb, "l_of", l_of)
+            fl.put(fb, "l_orth_new", self.lines.orth)
+            il.put(ib, "l_oi", l_oi)
+            il.put(ib, "l_ov", l_ov)
+            il.put(ib, "l_reset", lmask & ~prev)
+            il.put(ib, "l_kill", prev & ~lmask)
+        return slot, lmask
 
     def _pipe_drain_one(self) -> Optional[OdometryOut]:
         """Wait for the oldest in-flight frame; update the host mirrors."""
         fm = self.fm
         F = self.cfg.num_frames
         ol = self._consts.pipe_layouts()[2]
-        slot, t_k, was_kf, ts_win = self._pipe_q.popleft()
+        slot, t_k, was_kf, ts_win, lmask = self._pipe_q.popleft()
         ob = self._pipe_io.result(slot)
         if not np.isfinite(float(ol.get(ob, "cost")[0])):
             self.failed = True
             return None
+        if lmask is not None:
+            # the solved orth of the lines alive at dispatch and still
+            # alive; the device's outlier kills reach the host tables
+            lm = self.lines
+            alive = ol.get(ob, "l_alive") > 0.5
+            lm.set_orth(ol.get(ob, "orth").reshape(-1, 4),
+                        updated_mask=lmask & alive & lm.active)
+            dead = lmask & ~alive & lm.active
+            if dead.any():
+                lm._remove(np.flatnonzero(dead))
         st3 = layout.WindowState.unpack(ol.get(ob, "flat").copy(), F)
         out = OdometryOut(timestamp=t_k, p=st3.p[F - 1].copy(),
                           q=st3.q[F - 1].copy(), v=st3.v[F - 1].copy())
@@ -1094,6 +1258,8 @@ class Estimator:
         if old:
             # the depths arrive with the drain
             self.fm.slide_old(lambda slots: self.fm.inv_depth[slots])
+            if self.lines is not None:
+                self.lines.slide_old()
             self.timestamps[:-1] = self.timestamps[1:].copy()
             for a in (self.imu_acc, self.imu_gyr, self.imu_dt, self.imu_n):
                 a[:-1] = a[1:].copy()
@@ -1103,6 +1269,8 @@ class Estimator:
             self.timestamps[F - 2] = self.timestamps[F - 1]
             self._merge_last_edges()
             self.fm.slide_new()
+            if self.lines is not None:
+                self.lines.slide_new()
         self.frame_count = F - 1
 
     def _merged_last_edges(self):
@@ -1362,15 +1530,44 @@ class Estimator:
 
     def _optimize(self):
         oi, of, ov, lm_valid = self.fm.build_obs_packed()
+        problem = self._problem(oi, of, ov, lm_valid)
+        lm = self.lines
+        if lm is not None and (lm.active & lm.orth_valid).any():
+            self._optimize_lines(problem)
+            return
         st, dep, cost, scores = solve_score(
-            self._state_dev(), self._f(self.fm.inv_depth),
-            self._problem(oi, of, ov, lm_valid), self._solver_cfg)
+            self._state_dev(), self._f(self.fm.inv_depth), problem,
+            self._solver_cfg)
         self._outlier_scores_cache = (self._host(scores), lm_valid)
         if not np.isfinite(float(cost)):
             self.failed = True
             return
         self.state = self._unpack_host(st.pack())
         self.fm.set_depths(self._host(dep))
+
+    def _optimize_lines(self, problem):
+        """The multi-dispatch solve with lines: the line-only refinement,
+        the joint LM, then the line outlier removal at the solution. As
+        in the JAX package, this path scores no point outliers."""
+        line_obs, line_valid = self.lines.build_obs_table(self.dtype,
+                                                          self.device)
+        problem = problem._replace(line_obs=line_obs, line_valid=line_valid)
+        st0 = self._state_dev()
+        orth0 = line_factor.refine_orth(
+            st0, self._f(self.lines.orth), line_obs, line_valid,
+            huber_delta=self._solver_cfg.huber_delta)
+        st, dep, orth, info = gn.solve(st0, self._f(self.fm.inv_depth),
+                                       problem, self._solver_cfg,
+                                       line_orth=orth0)
+        if not np.isfinite(float(info.final_cost)):
+            self.failed = True
+            return
+        self.state = self._unpack_host(st.pack())
+        self.fm.set_depths(self._host(dep))
+        self.lines.set_orth(self._host(orth))
+        scores = line_factor.line_scores(self._state_dev(),
+                                         self._f(self.lines.orth), line_obs)
+        self.lines.remove_outliers(self._host(scores))
 
     def _reject_outliers(self):
         cache = self._outlier_scores_cache
@@ -1439,6 +1636,8 @@ class Estimator:
             self.imu_n[-1] = 0
             self.imu_dt[-1] = 0
             self._pres = roll_edges(self._pres)
+            if self.lines is not None:
+                self.lines.slide_old()
         else:
             F2, F1 = F - 2, F - 1
             for a in (st.p, st.q, st.v, st.ba, st.bg):
@@ -1450,6 +1649,8 @@ class Estimator:
             self._pres = set_edge(self._pres, e1,
                                   self._pres.map(lambda x: x[e1] * 0))
             self.fm.slide_new()
+            if self.lines is not None:
+                self.lines.slide_new()
         if self.im is not None:
             # object per-frame data follows the ego window's move
             # (Instance::SlideWindow / SlideWindowNew)
@@ -1679,17 +1880,13 @@ class Estimator:
         keyframe); (p_corr, q_corr): its pose-graph-corrected pose. The
         4-DOF world correction (yaw and translation; pitch and roll are
         observable through gravity and stay) moves the window, the
-        marginal prior's linearization point, the fast-prediction anchor
-        and the object tables. Depths are frame-anchored and move with
-        the window. Returns the pipelined frames drained first (the
+        marginal prior's linearization point, the fast-prediction anchor,
+        the world-frame line landmarks and the object tables. Depths are
+        frame-anchored and move with the window. Returns the pipelined frames drained first (the
         device residents are primed again from the corrected mirrors at
         the next frame)."""
         outs = self.flush() if self._pipe_q else []
         self._pipe_res = None
-        if self.lines is not None:
-            raise NotImplementedError(
-                "moving line landmarks is not ported yet: ROADMAP queue 1 "
-                "item 13 (LinePoint)")
 
         def yaw_of(q):
             R = lie_np.quat_to_matrix(np.asarray(q, float))
@@ -1718,6 +1915,16 @@ class Estimator:
             L["p"] = R_c @ L["p"] + t_c
             L["q"] = lie_np.quat_multiply(q_c, L["q"])
             L["v"] = R_c @ L["v"]
+        if self.lines is not None:
+            from dynamic_vins_tpu_torch.geometry import lines as lg
+
+            lm = self.lines
+            for slot in np.flatnonzero(lm.active & lm.orth_valid):
+                n_w, d_w = (x.numpy() for x in lg.orth_to_plucker(
+                    torch.tensor(lm.orth[slot], dtype=torch.float64)))
+                d2 = R_c @ d_w
+                lm.orth[slot] = plucker_to_orth_np(
+                    R_c @ n_w + np.cross(t_c, d2), d2)
         if self.im is not None:
             im = self.im
             im._sync_pending()         # world-frame tables move rigidly

@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with nvcc (for sm_90a, plain C entry
 points, no PyTorch headers: a few seconds), each `csrc/<name>.c` with
-the host C compiler, into `build/kernels/<name>-<hash>.so` at the
+the host C compiler and each `csrc/<name>.cpp` with the host C++
+compiler (no fused multiply-adds: the line detector reproduces
+OpenCV's double arithmetic), into `build/kernels/<name>-<hash>.so` at the
 repository root, keyed by a hash of the source and flags, at first use.
 Nothing is compiled at import time.
 """
@@ -24,6 +26,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 HOST_CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+HOST_CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17",
+                  "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -41,20 +45,25 @@ def _nvcc() -> str:
     return found
 
 
-def _host_cc() -> str:
-    for cand in (os.environ.get("CC"), "cc", "gcc", "clang"):
+def _host_cc(cxx: bool = False) -> str:
+    cands = (os.environ.get("CXX"), "c++", "g++", "clang++") if cxx \
+        else (os.environ.get("CC"), "cc", "gcc", "clang")
+    for cand in cands:
         found = cand and shutil.which(cand)
         if found:
             return found
-    raise RuntimeError("no host C compiler (cc, gcc or clang) found: "
-                       "the port's C sources build at first use")
+    kind = "C++" if cxx else "C"
+    raise RuntimeError(f"no host {kind} compiler ({', '.join(cands[1:])}) "
+                       f"found: the port's {kind} sources build at first "
+                       f"use")
 
 
 def _source(name: str):
-    """(source path, flags) of csrc/<name>.cu or csrc/<name>.c."""
-    cu = CSRC / f"{name}.cu"
-    if cu.exists():
-        return cu, NVCC_FLAGS
+    """(source path, flags) of csrc/<name>.cu, .cpp or .c."""
+    for suffix, flags in ((".cu", NVCC_FLAGS), (".cpp", HOST_CXX_FLAGS)):
+        src = CSRC / f"{name}{suffix}"
+        if src.exists():
+            return src, flags
     return CSRC / f"{name}.c", HOST_CC_FLAGS
 
 
@@ -66,13 +75,14 @@ def library_path(name: str) -> Path:
 
 
 def build(name: str, force: bool = False) -> Path:
-    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.c (host compiler)
+    """Compile csrc/<name>.cu (nvcc), .cpp or .c (host compilers)
     unless an up-to-date library exists (or `force`)."""
     out = library_path(name)
     if out.exists() and not force:
         return out
     src, flags = _source(name)
-    cc = _nvcc() if src.suffix == ".cu" else _host_cc()
+    cc = _nvcc() if src.suffix == ".cu" else \
+        _host_cc(cxx=src.suffix == ".cpp")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)],

@@ -58,6 +58,51 @@ def make_frames(seq: sim.SyntheticSequence, max_feats: int = 150,
     return out
 
 
+def make_line_segments(num: int = 40, seed: int = 9):
+    """World segments (s_w, e_w [num,3]) 2 m long, centred on landmarks
+    around the trajectory (the JAX package's draws)."""
+    rng = np.random.default_rng(seed)
+    centers = sim.make_landmarks(num, seed=seed).numpy()
+    dirs = rng.normal(size=(num, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return centers - dirs, centers + dirs
+
+
+def line_obs_for_frame(seq: sim.SyntheticSequence, k: int, s_w, e_w, rng,
+                       noise: float = 0.3):
+    """Frame k's line observations {line id: (s_l, e_l, s_r|None,
+    e_r|None)}: the world segments projected into the left and right
+    cameras with `noise` px of endpoint noise (the estimator's line
+    format; segments behind 0.5 m or leaving the image are dropped)."""
+    from dynamic_vins_tpu_torch.geometry import lie_np
+
+    rig = seq.rig
+    pr, qr = rig.right_extrinsics()
+    extr = [(rig.p_bc.numpy(), rig.q_bc.numpy()), (pr.numpy(), qr.numpy())]
+    p, q = seq.gt_p[k].numpy(), seq.gt_q[k].numpy()
+    out = {}
+    for l in range(len(s_w)):
+        obs = []
+        for p_bc, q_bc in extr:
+            p_cw, q_cw = lie_np.pose_inverse(*lie_np.pose_compose(p, q, p_bc,
+                                                                  q_bc))
+            sc = lie_np.pose_transform_point(p_cw, q_cw, s_w[l])
+            ec = lie_np.pose_transform_point(p_cw, q_cw, e_w[l])
+            if sc[2] < 0.5 or ec[2] < 0.5:
+                obs.append(None)
+                continue
+            sn = sc[:2] / sc[2] + rng.normal(scale=noise / 460, size=2)
+            en = ec[:2] / ec[2] + rng.normal(scale=noise / 460, size=2)
+            if np.abs(sn).max() > 0.9:
+                obs.append(None)
+                continue
+            obs.append((np.append(sn, 1.0), np.append(en, 1.0)))
+        if obs[0] is not None:
+            sr, er = obs[1] if obs[1] is not None else (None, None)
+            out[l] = (obs[0][0], obs[0][1], sr, er)
+    return out
+
+
 def ate_rmse(est_p, gt_p):
     """Unaligned ATE RMSE (trajectories share their origin)."""
     d = np.asarray(est_p) - np.asarray(gt_p)

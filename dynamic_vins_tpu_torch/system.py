@@ -7,12 +7,15 @@ modes: RAW (stereo+IMU, or mono+IMU with `is_stereo` off), NAIVE (the
 background tracker gated by a dynamic mask: the frame's `dynamic_mask`,
 else the union of its instance masks) and DYNAMIC (instances segmented,
 associated by MOT, tracked and estimated as moving objects). With
+`use_line` (LinePoint) a host line tracker (OpenCV's LSD reproduced,
+`frontend/line_tracker.py`) adds line segments, gated by the same mask,
+whose normalized endpoints the estimator keeps as line landmarks. With
 `VioConfig.pipelined` the frontend runs two frames ahead of the backend
 (the instance tracker one frame behind its dispatch) and the estimator
 keeps its steady state on the device, so `process` returns the output of
-an earlier frame, or None; `close` drains every frame in flight. Lines,
-online perception, loop closure and the multi-device engine are not
-ported yet and raise.
+an earlier frame, or None; `close` drains every frame in flight. Online
+perception, loop closure and the multi-device engine are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
                                                         EstimatorConfig)
 from dynamic_vins_tpu_torch.frontend.instance_tracker import (
     InstanceTracker, InstanceTrackerConfig)
+from dynamic_vins_tpu_torch.frontend.line_tracker import (LineTracker,
+                                                          LineTrackerConfig)
 from dynamic_vins_tpu_torch.frontend.tracker import (FeatureTracker,
                                                      TrackerConfig,
                                                      upload_stack)
-from dynamic_vins_tpu_torch.geometry import lie_np
+from dynamic_vins_tpu_torch.geometry import camera, lie_np
 from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
 from dynamic_vins_tpu_torch.io import perception
 from dynamic_vins_tpu_torch.io.writers import KittiMotWriter, TumWriter
@@ -43,7 +48,6 @@ from dynamic_vins_tpu_torch.utils.timing import StageTimer
 
 # VioConfig switches of paths not ported yet -> ROADMAP.md queue-1 item
 _TODO = {
-    "use_line": "item 13 (LinePoint)",
     "det2d_online": "item 16 (perception nets)",
     "det3d_online": "item 16 (perception nets)",
     "stereo_online": "item 16 (perception nets)",
@@ -114,6 +118,10 @@ class System:
                           stereo=cfg.is_stereo), intr, intr_r,
             device=self.device)
         self.tracker.timer = self.timer
+        # LinePoint: segments on the host, their endpoints ride
+        # FrameFeatures.lines
+        self.line_tracker = LineTracker(LineTrackerConfig()) \
+            if cfg.use_line else None
 
         self.estimator = Estimator(
             EstimatorConfig(num_frames=cfg.num_frames,
@@ -125,7 +133,8 @@ class System:
                             estimate_td=cfg.estimate_td,
                             use_plane_constraint=cfg.use_plane_constraint,
                             dynamic=cfg.slam == SlamMode.DYNAMIC,
-                            dtype=dtype),
+                            use_line=cfg.use_line,
+                            line_weight=cfg.line_weight, dtype=dtype),
             p_bc, q_bc, device=self.device)
         self.estimator.timer = self.timer
 
@@ -169,6 +178,9 @@ class System:
                                        mask=background_mask,
                                        img_right=fi.img_right,
                                        imgs_dev=imgs_dev)
+            lines = self._track_lines(fi, background_mask)
+            if lines is not None:
+                feats = feats._replace(lines=lines)
         instances = None
         if self.inst_tracker is not None and masks_by_tid:
             with t.stage("instances"):
@@ -206,6 +218,8 @@ class System:
             h = self.tracker.track_begin(
                 fi.img_left, fi.timestamp, mask=background_mask,
                 img_right=fi.img_right, imgs_dev=imgs_dev)
+            # the host LSD runs while the tracker's step is on the card
+            lines = self._track_lines(fi, background_mask)
         out = None
         if len(self._fe_pending) >= self._fe_lag:
             out = self._finish_oldest_pending()
@@ -224,9 +238,50 @@ class System:
                                       in masks_by_tid.items()},
                         img_right=fi.img_right, disparity=fi.disparity,
                         ego_pose=self._ego_estimate(), imgs_dev=imgs_dev)
-        self._fe_pending.append(dict(h=h, fi=fi, h_inst=h_inst,
+        self._fe_pending.append(dict(h=h, fi=fi, lines=lines, h_inst=h_inst,
                                      masks=masks_by_tid, instances=None))
         return out
+
+    def _track_lines(self, fi: FrameInput, mask):
+        """LinePoint: the frame's tracked segments as the estimator's
+        line observations, or None without a line tracker."""
+        if self.line_tracker is None:
+            return None
+        with self.timer.stage("fe.lsd"):
+            segs, right = self.line_tracker.track(
+                np.asarray(fi.img_left), mask=mask,
+                img_right=(np.asarray(fi.img_right)
+                           if fi.img_right is not None else None))
+            return self._lines_to_obs(segs, right)
+
+    def _lines_to_obs(self, segs, right):
+        """Pixel segments -> {id: (s_l, e_l, s_r|None, e_r|None)} with
+        normalized z = 1 endpoints, lifted in float32 on the host (the
+        intrinsics' type, as the JAX package lifts them)."""
+        if not segs:
+            return {}
+
+        def lift(intr, seg_list):
+            uv = np.array([[[g.sx, g.sy], [g.ex, g.ey]] for g in seg_list],
+                          np.float32).reshape(-1, 2)
+            n = camera.normalized_from_pixel(intr.to("cpu"),
+                                             torch.from_numpy(uv))
+            return n.numpy().reshape(len(seg_list), 2, 2)
+
+        n = lift(self.intr, segs)
+        n_r = {}
+        if right:
+            r_ids = list(right.keys())
+            nr = lift(self.intr_r, [right[i] for i in r_ids])
+            n_r = {i: nr[k] for k, i in enumerate(r_ids)}
+        one = lambda xy: np.append(xy, 1.0)
+        obs = {}
+        for k, seg in enumerate(segs):
+            r = n_r.get(seg.id)
+            obs[seg.id] = (one(n[k, 0]), one(n[k, 1]),
+                           None if r is None else one(r[0]),
+                           None if r is None else one(r[1]))
+        return obs
 
     def _all_true_mask(self, shape):
         if self._ones_mask is None or self._ones_mask.shape != shape:
@@ -448,6 +503,8 @@ class System:
             e["h_inst"] = None
         with self.timer.stage("frontend"):
             feats = self.tracker.track_collect(e["h"])
+        if e["lines"] is not None:
+            feats = feats._replace(lines=e["lines"])
         # the lagged frame's MOT rows use its own detections
         self._last_dets = {tid: det for tid, (_, det)
                            in e["masks"].items()}

@@ -1,9 +1,9 @@
 """The port's entry points: they run on the CUDA device unless asked for
 the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
-ROADMAP item (NAIVE and DYNAMIC run on the sequential and pipelined
-paths, mono+IMU and the extrinsic rotation calibration build; more than
-one card raises)."""
+ROADMAP item (NAIVE, DYNAMIC and LinePoint run on the sequential and
+pipelined paths, mono+IMU and the extrinsic rotation calibration build;
+more than one card raises)."""
 
 import numpy as np
 import pytest
@@ -25,9 +25,11 @@ P_BC = np.zeros((2, 3))
 Q_BC = np.tile([1.0, 0.0, 0.0, 0.0], (2, 1))
 INTR = PinholeIntrinsics.make(460.0, 460.0, 376.0, 240.0)
 
-def _mode(slam):
+def _mode(slam, **kw):
     cfg = VioConfig()
     cfg.slam = slam
+    for k, v in kw.items():
+        setattr(cfg, k, v)
     return cfg
 
 
@@ -39,6 +41,9 @@ ENTRY = {
     "system_dynamic": lambda **kw: System(_mode(SlamMode.DYNAMIC),
                                           output_prefix=kw.pop("out"),
                                           **kw),
+    "system_linepoint": lambda **kw: System(
+        _mode(SlamMode.RAW, use_line=True), output_prefix=kw.pop("out"),
+        **kw),
     "instance_tracker": lambda **kw: InstanceTracker(
         InstanceTrackerConfig(), INTR, 0.11, P_BC[0], Q_BC[0],
         device=kw.get("device")),
@@ -63,8 +68,8 @@ def test_default_device_is_cuda(name, tmp_path):
     assert not torch.backends.cudnn.allow_tf32
 
 
-@pytest.mark.parametrize("field", ["use_line", "use_dense_flow",
-                                   "use_loop_closure", "det2d_online"])
+@pytest.mark.parametrize("field", ["use_dense_flow", "use_loop_closure",
+                                   "det2d_online"])
 def test_unported_system_switches_raise(field, tmp_path):
     cfg = VioConfig()
     setattr(cfg, field, True)
@@ -92,8 +97,31 @@ def test_unported_modes_raise(mode, tmp_path):
         System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(use_line=True),
-                                dict(mesh=object())])
+@pytest.mark.parametrize("mode", [SlamMode.RAW, SlamMode.NAIVE])
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_use_line_builds_the_line_tracker_and_manager(mode, pipelined,
+                                                      tmp_path):
+    """`use_line` (LinePoint) builds the host line tracker and the
+    estimator's LineManager on both paths, with the config's line
+    weight."""
+    cfg = _mode(mode, use_line=True, pipelined=pipelined, line_weight=0.5)
+    system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+    est = system.estimator
+    assert system.line_tracker is not None
+    assert est.cfg.use_line and est.lines is not None
+    assert est.lines.capacity == est.cfg.line_capacity == 64
+    assert est.lines.obs_capacity == 512
+    assert est._solver_cfg.line_weight == 0.5
+    assert est._consts.use_line and est.cfg.pipelined == pipelined
+    system.close()
+    plain = System(_mode(mode), output_prefix=str(tmp_path / "run"),
+                   device="cpu")
+    assert plain.line_tracker is None and plain.estimator.lines is None
+    plain.close()
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(mesh=object(), use_line=True)])
 def test_unported_estimator_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Estimator(EstimatorConfig(num_frames=4, **kw), P_BC, Q_BC,

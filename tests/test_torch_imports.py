@@ -26,8 +26,8 @@ def _port_modules():
 
 
 def test_scan_covers_every_module():
-    """The scans below reach the DYNAMIC slice's modules and the mono
-    initialization's too."""
+    """The scans below reach the DYNAMIC slice's modules, the mono
+    initialization's and LinePoint's too."""
     mods = set(_port_modules())
     for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
@@ -37,7 +37,9 @@ def test_scan_covers_every_module():
               "io.image_io", "io.datasets", "io.evaluation",
               "io.eval_tools", "frontend.ransac", "estimator.essential",
               "estimator.initializer", "estimator.ex_rotation",
-              "sim.ba_problems", "sim.objects"):
+              "sim.ba_problems", "sim.objects", "frontend.lsd",
+              "frontend.line_tracker", "geometry.lines",
+              "factors.line_factor", "estimator.line_manager"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 

@@ -3,14 +3,17 @@
 On the CPU: the steps run eagerly through StepGraph, leave their inputs
 as they were, and issue no operation that would synchronize with the
 host (which stream capture refuses) outside the `host_synced` calls;
-a dispatch mode stands in for the capture and counts the segments. The
-object BA step (DYNAMIC) has no `host_synced` call at all: one graph.
+a dispatch mode stands in for the capture and counts the segments.
+LinePoint's steps (the line-only refinement and the line blocks' 4x4
+solves in elementwise ops) add no host synchronization. The object BA
+step (DYNAMIC) has no `host_synced` call at all: one graph.
 
 On the card (`gpu` marker; skips without one): a replay of each
 branch's chain equals the eager step on the same inputs (masks
 identical, positions within 1e-6 m, float64), for the sequential and
-the pipelined step, and every steady frame was one replay; a replay of
-the object step equals its eager run within 1e-9 (float64). This file
+the pipelined step, with and without lines (orth within 1e-6), and
+every steady frame was one replay; a replay of the object step equals
+its eager run within 1e-9 (float64). This file
 imports no JAX, so the card's machine runs it as
 
     python -m pytest tests/test_torch_step_graph.py -m gpu --noconftest
@@ -42,18 +45,26 @@ SYNC_OPS = {"aten::_local_scalar_dense", "aten::nonzero",
             "aten::_linalg_eigh", "aten::_linalg_svd"}
 
 
-def _run(device, pipelined=False, record=False):
+def _run(device, pipelined=False, record=False, lines=False):
     """A window-5 stereo+IMU estimator over FRAMES frames, 4 of them
-    steady: (estimator, its step graph, outputs, the step function and,
-    with `record`, the inputs of each steady frame's step)."""
+    steady, with `lines` LinePoint on 40 world segments: (estimator,
+    its step graph, outputs, the step function and, with `record`, the
+    inputs of each steady frame's step)."""
     seq = sim.generate_sequence(num_frames=FRAMES, imu_hz=200.0,
                                 num_landmarks=150, seed=2)
     frames = frontend_sim.make_frames(seq, max_feats=80, pixel_noise=0.4)
+    if lines:
+        s_w, e_w = frontend_sim.make_line_segments(40, seed=9)
+        frames = [(f._replace(lines=frontend_sim.line_obs_for_frame(
+            seq, k, s_w, e_w, np.random.default_rng(100 + k))), imu)
+            for k, (f, imu) in enumerate(frames)]
     pr, qr = seq.rig.right_extrinsics()
     p_bc = np.stack([seq.rig.p_bc.numpy(), pr.numpy()])
     q_bc = np.stack([seq.rig.q_bc.numpy(), qr.numpy()])
     est = Estimator(EstimatorConfig(num_frames=5, lm_capacity=160,
                                     obs_capacity=1024, pipelined=pipelined,
+                                    use_line=lines, line_capacity=48,
+                                    line_obs_capacity=256,
                                     dtype=torch.float64),
                     p_bc, q_bc, device=device)
     est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
@@ -69,6 +80,8 @@ def _run(device, pipelined=False, record=False):
     outs = [est.process_frame(f, imu) for f, imu in frames]
     outs = [o for o in outs if o is not None] + est.flush()
     assert est.initialized and not est.failed
+    if lines:
+        assert est.lines.orth_valid.sum() >= 5
     return est, graph, outs, fn, calls
 
 
@@ -104,16 +117,19 @@ class _FakeChain:
 
 @pytest.fixture(scope="module")
 def cpu_runs():
-    return {p: _run("cpu", pipelined=p, record=True) for p in (False, True)}
+    return {(p, lines): _run("cpu", pipelined=p, record=True, lines=lines)
+            for p in (False, True) for lines in (False, True)}
 
 
+@pytest.mark.parametrize("lines", [False, True])
 @pytest.mark.parametrize("pipelined", [False, True])
 @pytest.mark.parametrize("keyframe", [True, False])
-def test_step_is_capturable(cpu_runs, pipelined, keyframe):
-    """No host synchronization in either branch of either step but at
-    its 3 host-synced calls (the triangulation's batched SVD and the
-    marginalization's two eighs), and the inputs stay untouched."""
-    _, _, _, step, calls = cpu_runs[pipelined]
+def test_step_is_capturable(cpu_runs, pipelined, keyframe, lines):
+    """No host synchronization in either branch of either step, with or
+    without lines, but at its 3 host-synced calls (the triangulation's
+    batched SVD and the marginalization's two eighs), and the inputs
+    stay untouched."""
+    _, _, _, step, calls = cpu_runs[pipelined, lines]
     assert len(calls) == FRAMES - 5
     _, inputs = calls[-1]
     before = pytree.tree_map(torch.clone, inputs)
@@ -154,9 +170,11 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lines", [False, True])
 @pytest.mark.parametrize("pipelined", [False, True])
-def test_replay_equals_eager_step(cuda_device, pipelined):
-    est, graph, outs, _, _ = _run(cuda_device, pipelined=pipelined)
+def test_replay_equals_eager_step(cuda_device, pipelined, lines):
+    est, graph, outs, _, _ = _run(cuda_device, pipelined=pipelined,
+                                  lines=lines)
     assert sum(graph.replays.values()) == FRAMES - 5
     assert len(outs) == FRAMES
     assert all(np.isfinite(o.p).all() for o in outs)
@@ -168,6 +186,8 @@ def test_replay_equals_eager_step(cuda_device, pipelined):
         assert agree["masks_equal"], (key, agree)
         assert agree["pos_m"] <= POS_ATOL, (key, agree)
         assert agree["prior_rel"] <= 1e-6, (key, agree)
+        if lines:
+            assert agree["orth"] <= POS_ATOL, (key, agree)
 
 
 def _object_run(device, frames=5):
