@@ -139,6 +139,44 @@ Phases (any failure exits non-zero before the result lines):
      equal to the eager step: masks identical, positions and line orth
      within 1e-6. Prints ms/frame, stage means with `fe.lsd`, segments a
      frame, peak memory, the replays' segments and host syncs.
+ 16. nets: the five online perception nets on the card at 752x480, each
+     through `models.pretrained.load_online` with the shipped weights
+     and the manifest's hyperparameters (SOLOv2: 8 classes, grids
+     12/8/6/4; FCOS3D: 6 classes; stereo, max_disp 128; RAFT, 8
+     updates; ReID), and again on the CPU with the same weights and
+     inputs (the slice's frame 10 left image; its stereo pair; frames
+     10 -> 11 for RAFT; 16 boxes of frame 10, clamped crops, for ReID).
+     The raw head outputs (SOLOv2's kernels, category scores and mask
+     features; FCOS3D's three maps a level; the disparity; the flow;
+     the embeddings) agree within 1e-3 of each output's scale, the
+     disparity and flow within 0.1 px. Prints each net's ms a call
+     (CUDA events, 20 calls after 5 warm-up; the wrapper's device path,
+     the image upload included), its peak device memory above what was
+     held before its calls, and the card's name and power limit. TF32 stays off for cuDNN and matmuls.
+ 17. accuracy: the shipped stereo net (max_disp 32), RAFT (4 updates)
+     and ReID on the card, on fresh batches from the port's copies of
+     the generators at 96x128 (seed 123, the batch that
+     tests/test_shipped_weights.py scores; ReID seed 7, 4 ids x 4
+     views): stereo smooth-L1 EPE < 2.5 px, flow EPE < 9.0 px, ReID
+     mean intra-class minus inter-class cosine > 0.25 (that test's
+     gates). The only check of the nets' trained behaviour on the card.
+ 18. online: the DYNAMIC System, stereo+IMU, with every net online
+     (`det2d_online`, `det3d_online`, `stereo_online`, `use_dense_flow`,
+     `use_reid`) on the 30 frames of phase 9's scene with no offline
+     artifact: stereo, RAFT and ReID with the shipped weights, SOLOv2
+     and FCOS3D seeded at the System's default shapes (80 and 10
+     classes; the manifest's are not those), the SOLOv2 score threshold
+     0 (as tests/test_system.py runs its untrained detector). Gates: an
+     output for every frame, finite states and instance states, every
+     net called on every steady frame where the JAX System calls it
+     (SOLOv2, FCOS3D, stereo every frame; RAFT from the second frame
+     on; ReID on frames with a dynamic-class detection), the radius-10
+     track kernel launched for the stereo track every frame and for the
+     temporal track on frame 0 only (the flow field replaces it after),
+     the radius-8 one twice on every frame with instances, no level
+     launch and no plain LK. Prints ms/frame, the perception stage and
+     its per-net split, `fe.dispatch`, `be.step`, the ego ATE (not
+     gated: the untrained detector's instances), peak memory.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -193,6 +231,15 @@ LINE_CHECK_FRAMES = 20     # the float64 LinePoint replay check's depth
 MIN_SEGMENTS = 10          # segments a left image
 MIN_LINES = 5              # tests/test_line_e2e.py:88
 LINE_COS = 0.99            # tests/test_line_e2e.py:100-104
+NET_RTOL = 1e-3            # nets: card vs CPU, relative to the output's scale
+NET_PX_ATOL = 0.1          # nets: card vs CPU, disparity and flow (px)
+ACC_HW = (96, 128)         # tests/test_shipped_weights.py
+ACC_SEED = 123
+ACC_STEREO_PX = 2.5        # tests/test_shipped_weights.py:43
+ACC_FLOW_PX = 9.0          # tests/test_shipped_weights.py:49
+ACC_REID_SEP = 0.25        # tests/test_shipped_weights.py:79
+ONLINE_DET2D_THRESH = 0.0  # tests/test_system.py:214 (an untrained head)
+ONLINE_SEEDS = 16          # SOLOv2 seeds tried for a dynamic-class instance
 
 
 def fail(msg: str):
@@ -1780,12 +1827,269 @@ def linepoint_phase(torch, dev, seq, imgs, imus):
                           for n in ("lk_level", "lk_track")})
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: the online perception nets
+# ---------------------------------------------------------------------------
+def _net_inputs(imgs):
+    """The nets phase's inputs: the slice's frame 10 (left, right), frame
+    11 (left), and 16 boxes of 64 x 128 px on frame 10's left image (a 4
+    x 4 grid; those of the last row and column reach past the image's
+    edge, so their crops are clamped)."""
+    import numpy as np
+
+    left = imgs[10][0]
+    H, W = left.shape
+    boxes = np.array([[x, y, x + 64, y + 128]
+                      for y in np.linspace(0, H - 60, 4)
+                      for x in np.linspace(0, W - 40, 4)], np.float64)
+    return left, imgs[10][1], imgs[11][0], boxes
+
+
+def nets_phase(torch, dev, card, imgs, rig):
+    """Phase 16 (see the module docstring)."""
+    from dynamic_vins_tpu_torch.models import layers, pretrained
+
+    left, right, nxt, boxes = _net_inputs(imgs)
+    hw = left.shape
+    intr = [float(v) for v in rig.intr[:4]]
+    made = {}
+    for task in ("solo", "det3d", "stereo", "flow", "reid"):
+        made[task] = [pretrained.load_online(task, hw, intr, device=d)
+                      for d in (dev, "cpu")]
+    print(f"nets: {hw[1]}x{hw[0]}, float32, cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; card {card}",
+          flush=True)
+    reid = made["reid"][0]
+    crops = reid.crops(left, boxes)
+    norm = lambda w, img: layers.normalize_image(img, w.dtype, w.device)
+    # (raw outputs of one wrapper, timed device call, tolerance kind)
+    raw = dict(
+        solo=lambda w: list(w.model(norm(w, left))),
+        det3d=lambda w: [t for lv in w.model(norm(w, left)) for t in lv],
+        stereo=lambda w: [w.run(left, right)],
+        flow=lambda w: [w(left, nxt)],
+        reid=lambda w: [w.embed(crops)])
+    timed = dict(
+        solo=lambda w: w.run(left), det3d=lambda w: w.run(left),
+        stereo=lambda w: w.run(left, right), flow=lambda w: w(left, nxt),
+        reid=lambda w: w.embed(crops))
+    out = {}
+    for task, (card_net, cpu_net) in made.items():
+        with torch.no_grad():
+            a = [t.cpu() for t in raw[task](card_net)]
+            b = raw[task](cpu_net)
+        if task in ("stereo", "flow"):
+            err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            tol, what = NET_PX_ATOL, "px"
+        else:
+            err = max(float((x - y).abs().max() / y.abs().max().clamp_min(
+                1e-6)) for x, y in zip(a, b))
+            tol, what = NET_RTOL, "relative to the output's scale"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = _timed(torch, lambda: timed[task](card_net), 20)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        shapes = [tuple(t.shape) for t in a]
+        print(f"nets: {task}: card vs CPU max |diff| {err:.3e} {what} "
+              f"(tolerance {tol}), outputs {shapes}; {ms:.3f} ms a call "
+              f"(CUDA events, 20 calls after 5), peak device memory "
+              f"{peak:.1f} MiB above the {base / 2**20:.1f} MiB held "
+              f"before; {card}", flush=True)
+        if not err <= tol:
+            fail(f"nets: {task}: the card's raw outputs differ from the "
+                 f"CPU's by {err} (tolerance {tol} {what})")
+        out[task] = dict(ms=ms, peak_mib=peak, err=err)
+    return out
+
+
+def accuracy_phase(torch, dev):
+    """Phase 17 (see the module docstring)."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.models import layers, pretrained
+    from dynamic_vins_tpu_torch.models.raft import RAFT
+    from dynamic_vins_tpu_torch.models.reid import ReidNet
+    from dynamic_vins_tpu_torch.models.stereo_net import StereoNet
+    from dynamic_vins_tpu_torch.training import data
+
+    hw = ACC_HW
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    nchw = lambda a: ((put(a) / 255.0 - 0.45) / 0.225).permute(0, 3, 1, 2)
+    net = lambda m, task: pretrained.prepare(
+        m, pretrained.weights_path(task), torch.float32, dev)
+    # tests/test_shipped_weights.py: the training CLI's task builder draws
+    # one batch (its init batch) before the fresh one it scores
+    rng = np.random.default_rng(ACC_SEED)
+    data.stereo_batch(rng, 2, hw, 32)
+    left, right, disp, valid = data.stereo_batch(rng, 2, hw, 32)
+    with torch.no_grad():
+        pred = net(StereoNet(max_disp=32), "stereo")(nchw(left),
+                                                     nchw(right))
+    err = (pred - put(disp)).abs()
+    sl1 = torch.where(err < 1.0, 0.5 * err * err, err - 0.5)
+    w = put(valid).float()
+    stereo = float((sl1 * w).sum() / w.sum().clamp_min(1.0))
+    rng = np.random.default_rng(ACC_SEED)
+    data.flow_batch(rng, 1, hw)
+    img1, img2, flow, valid = data.flow_batch(rng, 1, hw)
+    with torch.no_grad():
+        pred = net(RAFT(iters=4), "flow")(nchw(img1), nchw(img2))
+    err = (pred.permute(0, 2, 3, 1) - put(flow)).abs().sum(-1)
+    w = put(valid).float()
+    flow_epe = float((err * w).sum() / w.sum().clamp_min(1.0))
+    im, lab = data.reid_batch(np.random.default_rng(7), num_ids=4, views=4,
+                              hw=(64, 32))
+    with torch.no_grad():
+        emb = net(ReidNet(), "reid")(nchw(im.astype(np.float32)))
+    emb = emb.cpu().numpy()
+    sim_ = emb @ emb.T
+    same = lab[:, None] == lab[None, :]
+    off = ~np.eye(len(lab), dtype=bool)
+    sep = float(sim_[same & off].mean() - sim_[~same].mean())
+    print(f"accuracy: {hw[1]}x{hw[0]}, seed {ACC_SEED}, on the card: stereo "
+          f"smooth-L1 EPE {stereo:.4f} px (gate < {ACC_STEREO_PX}), flow "
+          f"EPE {flow_epe:.4f} px (gate < {ACC_FLOW_PX}), ReID intra - "
+          f"inter cosine {sep:.4f} (gate > {ACC_REID_SEP})", flush=True)
+    if not (stereo < ACC_STEREO_PX and flow_epe < ACC_FLOW_PX
+            and sep > ACC_REID_SEP):
+        fail("accuracy: a shipped net misses its gate")
+    return dict(stereo_epe=stereo, flow_epe=flow_epe, reid_sep=sep)
+
+
+def online_phase(torch, dev, seq, dframes, imus):
+    """Phase 18 (see the module docstring)."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io import perception
+    from dynamic_vins_tpu_torch.models import pretrained
+    from dynamic_vins_tpu_torch.models.solov2 import OnlineDetector2D
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.sim import frontend_sim
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+    from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
+
+    cfg = slice_config(seq.rig, VioConfig())
+    cfg.slam = SlamMode.DYNAMIC
+    cfg.det2d_online = cfg.det3d_online = cfg.stereo_online = True
+    cfg.use_dense_flow = cfg.use_reid = True
+    cfg.det2d_score_thresh = ONLINE_DET2D_THRESH
+    cfg.stereo_weights = pretrained.weights_path("stereo")
+    cfg.flow_weights = pretrained.weights_path("flow")
+    cfg.reid_weights = pretrained.weights_path("reid")
+    system = System(cfg, output_prefix=str(REPO / "output"
+                                           / "chip_smoke_online"),
+                    device=dev, dtype=torch.float32)
+    est = system.estimator
+    # an untrained head's argmax favours a few classes (seed 0's are none
+    # of the dynamic ones on this scene): take the first seed whose
+    # SOLOv2 finds a dynamic-class instance on frame 0, so that MOT, ReID
+    # and the instance path run
+    for seed in range(ONLINE_SEEDS):
+        det = OnlineDetector2D((cfg.image_height, cfg.image_width),
+                               score_thresh=cfg.det2d_score_thresh,
+                               seed=seed, device=dev)
+        if any(int(l) in perception.COCO_DYNAMIC_IDS
+               for l in det(dframes[0].img_left).labels):
+            system.det2d = det
+            break
+    else:
+        fail(f"online: no SOLOv2 seed below {ONLINE_SEEDS} finds a "
+             f"dynamic-class instance on frame 0")
+    print(f"online: {seq.rig.width}x{seq.rig.height} stereo+IMU DYNAMIC, "
+          f"every net online (SOLOv2 seeded at {seed} and FCOS3D at 0, at "
+          f"the System's shapes, score threshold "
+          f"{cfg.det2d_score_thresh}; stereo, RAFT and ReID shipped), "
+          f"window {cfg.window_size}, estimator dtype {est.dtype}, "
+          f"{FRAMES} frames", flush=True)
+    est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                         sim.state_at(seq.frame_times[0])[2].numpy())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, [est._mega, est.im.solve_graph])
+    outs, flows, dyn_frames, inst_frames, masks = [], 0, 0, 0, []
+    for k, df in enumerate(dframes):
+        if k == STEADY_FROM:
+            torch.cuda.synchronize()
+            system.reset_timers()
+            t_steady = time.perf_counter()
+        fi = FrameInput(float(seq.frame_times[k]), df.img_left,
+                        df.img_right, imu=imus[k])
+        outs.append(system.process(fi))
+        flows += system.last_flow is not None
+        dyn = [int(l) in perception.COCO_DYNAMIC_IDS for l in fi.seg.labels]
+        dyn_frames += any(dyn)
+        inst_frames += bool(system._last_dets)
+        masks.append((len(fi.seg.masks), sum(dyn), len(fi.boxes3d)))
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t_steady) / (FRAMES
+                                                         - STEADY_FROM)
+    launches = dict(lk_level=K.launches, plain_levels=K.plain_levels,
+                    **{f"lk_track_r{r}": n for r, n
+                       in K.track_launches_by_radius.items()})
+    counts = {k: v for k, v in system.timer.counts.items()
+              if k.startswith("pe.")}
+    stages = system.close()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steady = FRAMES - STEADY_FROM
+    print(f"online: per frame (detections, dynamic ones, 3D boxes) "
+          f"{json.dumps(masks)}; {dyn_frames} frames with a dynamic "
+          f"detection, {inst_frames} with instances, {flows} with a flow "
+          f"field", flush=True)
+    print(f"online: kernel launches {json.dumps(launches)}; net calls over "
+          f"the steady frames {json.dumps(counts)}", flush=True)
+    want = dict(lk_level=0, plain_levels=0,
+                lk_track_r10=FRAMES + 1, lk_track_r8=2 * inst_frames)
+    if launches != want:
+        fail(f"online: LK launches {launches}, expected {want} (the "
+             f"temporal track on frame 0 only, then the flow field)")
+    dyn_steady = sum(m[1] > 0 for m in masks[STEADY_FROM:])
+    want_calls = {"pe.det2d": steady, "pe.det3d": steady,
+                  "pe.stereo": steady, "pe.flow": steady}
+    if dyn_steady:
+        want_calls["pe.reid"] = dyn_steady
+    if counts != want_calls or flows != FRAMES - 1:
+        fail(f"online: net calls {counts}, expected {want_calls}; flow "
+             f"fields {flows}, expected {FRAMES - 1}")
+    if any(o is None for o in outs) or est.failed or not all(
+            np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
+            for o in outs):
+        fail("online: a frame without an output, a non-finite output, or "
+             "estimator failure")
+    inst = est.get_instance_states()
+    if not all(np.isfinite(np.concatenate([s["p"], s["q"], s["v"]])).all()
+               for s in inst.values()):
+        fail("online: a non-finite instance state")
+    p = np.stack([o.p for o in outs])
+    ate = frontend_sim.ate_rmse(p, seq.gt_p.numpy())
+    split = {k: stages.get(k) for k in ("perception", "pe.det2d",
+                                        "pe.det3d", "pe.stereo", "pe.flow",
+                                        "pe.reid", "frontend",
+                                        "fe.dispatch", "instances",
+                                        "backend", "be.step", "output")}
+    print(f"online: steady ms/frame (frames {STEADY_FROM}-{FRAMES - 1}) "
+          f"{steady_ms:.2f}, ego ATE {ate:.4f} m (printed, not gated: the "
+          f"untrained detector's instances), {len(inst)} instances, peak "
+          f"device memory {peak:.1f} MiB", flush=True)
+    print(f"online: stage means (ms, steady frames; pe.flow is the "
+          f"dispatch, its device time lands in the next stage that "
+          f"waits):", json.dumps(split), flush=True)
+    print("online: all stage means:", json.dumps(stages), flush=True)
+    return dict(launches=launches, steady_ms=steady_ms)
+
+
 def main():
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
-    device_phase(torch)
+    card = device_phase(torch)
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda")
     build_phase()
@@ -1833,13 +2137,18 @@ def main():
     mono_reference_phase(torch, dev)
     resume_phase(torch, dev, seq)
     lines = linepoint_phase(torch, dev, seq, imgs, imus)
-    # launches of every main-path phase (4, 6-13, 15), each counted from 0
+    nets_phase(torch, dev, card, imgs, seq.rig)
+    accuracy_phase(torch, dev)
+    online = online_phase(torch, dev, seq, dframes, imus)
+    # launches of every main-path phase (4, 6-13, 15, 18), each counted
+    # from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
     for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono),
               lines):
         launches["lk_level"] += r["launches"]["lk_level"]
         launches["lk_track"] += r["launches"]["lk_track"]
-    for r in (dyn["launches"], dyn_pipe["launches"], cli):
+    for r in (dyn["launches"], dyn_pipe["launches"], cli,
+              online["launches"]):
         launches["lk_level"] += r["lk_level"]
         launches["lk_track"] += r["lk_track_r10"]
         launches["lk_track_r8"] += r["lk_track_r8"]

@@ -132,3 +132,55 @@ def load_instance_state(im, d):
                              f"{getattr(im, name).shape}")
         setattr(im, name, a.astype(getattr(im, name).dtype, copy=True))
     im._tid_to_slot = {int(k): int(v) for k, v in d["tid_to_slot"].items()}
+
+
+# flax leaf name -> torch parameter name (Conv / Dense kernels and
+# GroupNorm scales are `weight`)
+_FLAX_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _flax_key(key: str) -> str:
+    """"('params')/('FPN_0')/('lat0')/('kernel')" (the `.npz` keys of
+    the JAX package's `solov2.save_params`, `[`/`]` stored as `(`/`)`)
+    -> "FPN_0.lat0.weight"."""
+    parts = [p.strip("()[]'\"") for p in key.split("/")]
+    if parts and parts[0] == "params":
+        parts = parts[1:]
+    return ".".join(parts[:-1] + [_FLAX_LEAF.get(parts[-1], parts[-1])])
+
+
+def _flax_array(a: np.ndarray) -> torch.Tensor:
+    """A flax leaf in torch's layout: Dense [in,out] -> [out,in], Conv
+    HWIO -> OIHW, 3-D conv DHWIO -> OIDHW; float16 storage -> float32
+    (the JAX package casts a loaded leaf to its template's float32)."""
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dim() >= 2:
+        t = t.permute(*range(t.dim() - 1, t.dim() - 3, -1),
+                      *range(t.dim() - 2))
+    return t.contiguous()
+
+
+def flax_params(flat, module: torch.nn.Module) -> dict:
+    """A state dict for one of the port's nets (`models/`) from flattened
+    flax parameters {path: array} (an `.npz` of the JAX package's
+    `save_params`, or a flattened JAX parameter tree with the same
+    keys). Submodules carry flax's names, so a path maps one to one. A
+    parameter absent from `flat` keeps the module's own value (as
+    `load_params` keeps its template's leaf); a shape that disagrees
+    raises; keys the module does not have are ignored."""
+    state = module.state_dict()
+    for key, a in flat.items():
+        name = _flax_key(key)
+        if name not in state:
+            continue
+        t = _flax_array(a)
+        if tuple(t.shape) != tuple(state[name].shape):
+            raise ValueError(
+                f"parameter {name}: the checkpoint holds shape "
+                f"{tuple(t.shape)}, the module expects "
+                f"{tuple(state[name].shape)}")
+        state[name] = t.to(state[name].dtype)
+    return state

@@ -94,3 +94,27 @@ def make_tracker(levels: int = 4, radius: int = 10, iters: int = 10,
 
     run.backend = backend
     return run
+
+
+def track_by_dense_flow(flow, pts, valid, flow_back=None,
+                        fb_thresh: float = 1.5, border: int = 3):
+    """Track features by sampling a dense optical-flow field instead of
+    sparse LK (FeatureTrackByDenseFlow, front_end/feature_utils.cpp).
+
+    flow: [H,W,2] forward flow (img0 -> img1), pixels; pts [N,2]
+    positions in img0; valid [N] bool. flow_back: an optional [H,W,2]
+    backward field for a forward-backward check within fb_thresh px.
+    Points that land within `border` px of the image edge are dropped.
+    Returns (pts1 [N,2], ok [N])."""
+    sample = lambda f, p: torch.stack(
+        [pyr.bilinear_sample(f[..., 0], p),
+         pyr.bilinear_sample(f[..., 1], p)], dim=-1)
+    pts1 = pts + sample(flow, pts)
+    ok = valid
+    if flow_back is not None:
+        pts_back = pts1 + sample(flow_back, pts1)
+        ok = ok & (torch.linalg.norm(pts_back - pts, dim=-1) < fb_thresh)
+    H, W = flow.shape[:2]
+    ok = ok & (pts1[:, 0] >= border) & (pts1[:, 0] < W - border) \
+        & (pts1[:, 1] >= border) & (pts1[:, 1] < H - border)
+    return pts1, ok

@@ -4,7 +4,10 @@ then host id/velocity/RANSAC-F bookkeeping.
 Per frame (the reference's FeatureTracker::TrackImage / TrackImageNaive):
   * LK-track the previous features into the current frame (forward-
     backward check, border check; with a mask, tracked points that land
-    where it is False are dropped),
+    where it is False are dropped); given a dense flow field (previous
+    -> current frame, `use_dense_flow`), sample it at the features
+    instead (FeatureTrackByDenseFlow, no backward check), except on the
+    first frame,
   * top up to `max_cnt` with Shi-Tomasi corners away from survivors
     (and, with a mask, only where it is True),
   * left -> right LK for the stereo observations,
@@ -105,13 +108,18 @@ class FeatureTracker:
 
     # ------------------------------------------------------------------
     def _fused(self, prev_img, imgs, pts, valid, kill, use_right,
-               mask=None):
+               mask=None, flow=None):
         cfg = self.cfg
         N = cfg.max_cnt
         img = imgs[0].to(cfg.dtype)
         img_r = imgs[1].to(cfg.dtype) if use_right else img
         valid = valid & ~kill
-        p1, ok = self._tracker(prev_img, img, pts, valid)
+        if flow is not None:
+            p1, ok = lk.track_by_dense_flow(flow, pts, valid,
+                                            fb_thresh=cfg.fb_thresh,
+                                            border=cfg.border)
+        else:
+            p1, ok = self._tracker(prev_img, img, pts, valid)
         ok = ok & valid
         if mask is not None:
             ok = ok & mask_at(mask, p1)
@@ -150,10 +158,14 @@ class FeatureTracker:
             else contextlib.nullcontext()
 
     def track_begin(self, img, timestamp: float, mask=None,
-                    img_right=None, imgs_dev=None) -> TrackHandle:
+                    img_right=None, flow=None,
+                    imgs_dev=None) -> TrackHandle:
         """Upload + run the fused step for one frame.
 
         mask: optional [H,W] bool, True where tracking is allowed.
+        flow: optional [H,W,2] dense flow from the previous frame (a
+        tensor, left where it lies, or numpy); used from the second
+        frame on in place of the temporal LK track.
         imgs_dev: the frame's [1|2,H,W] stack already on the device (the
         System uploads it once and shares it with the instance tracker);
         img / img_right are then not read."""
@@ -167,6 +179,9 @@ class FeatureTracker:
                 img, img_right if use_right else None, self.device)
             mask_dev = None if mask is None else \
                 torch.from_numpy(np.asarray(mask, bool)).to(self.device)
+        use_flow = flow is not None and self._dev is not None
+        flow_dev = torch.as_tensor(flow).to(self.device, cfg.dtype) \
+            if use_flow else None
         if self._dev is None:
             N = cfg.max_cnt
             prev = imgs[0].to(cfg.dtype)
@@ -180,7 +195,7 @@ class FeatureTracker:
             img2, pts2, valid2, packed = self._fused(
                 prev, imgs, pts, valid,
                 torch.from_numpy(kill_np.copy()).to(self.device),
-                use_right, mask_dev)
+                use_right, mask_dev, flow_dev)
         self._dev = (img2, pts2, valid2)
         return TrackHandle(timestamp, packed, use_right, kill_np)
 
@@ -249,11 +264,11 @@ class FeatureTracker:
         return FrameFeatures(timestamp, feats)
 
     def track(self, img, timestamp: float, mask=None,
-              img_right=None, imgs_dev=None) -> FrameFeatures:
+              img_right=None, flow=None, imgs_dev=None) -> FrameFeatures:
         """Process one grayscale [H,W] frame (and its right image).
 
         mask: optional [H,W] bool, True where tracking is allowed (the
-        reference's inv_merge_mask)."""
+        reference's inv_merge_mask); flow: as `track_begin`."""
         return self.track_collect(self.track_begin(
-            img, timestamp, mask=mask, img_right=img_right,
+            img, timestamp, mask=mask, img_right=img_right, flow=flow,
             imgs_dev=imgs_dev))

@@ -13,9 +13,19 @@ whose normalized endpoints the estimator keeps as line landmarks. With
 `VioConfig.pipelined` the frontend runs two frames ahead of the backend
 (the instance tracker one frame behind its dispatch) and the estimator
 keeps its steady state on the device, so `process` returns the output of
-an earlier frame, or None; `close` drains every frame in flight. Online
-perception, loop closure and the multi-device engine are not ported yet
-and raise.
+an earlier frame, or None; `close` drains every frame in flight.
+
+The online perception nets (`models/`) run in the `perception` stage
+where the config switches them on and the frame brings no offline
+artifact: SOLOv2 (`det2d_online`, not in RAW), FCOS3D (`det3d_online`,
+DYNAMIC only), the stereo net (`stereo_online`, stereo rigs), RAFT
+(`use_dense_flow`: the background tracker follows the field instead of
+its temporal LK track from the second frame on; an offline
+`FrameInput.flow` takes precedence) and ReID (`use_reid`, MOT's
+appearance embeddings). Segmentations, boxes and disparities come back
+to the host, where the perception stage reads them; the flow field
+stays on the device for the tracker. Loop closure and the multi-device
+engine are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dynamic_vins_tpu_torch import models
 from dynamic_vins_tpu_torch.estimator.estimator import (Estimator,
                                                         EstimatorConfig)
 from dynamic_vins_tpu_torch.frontend.instance_tracker import (
@@ -48,11 +59,6 @@ from dynamic_vins_tpu_torch.utils.timing import StageTimer
 
 # VioConfig switches of paths not ported yet -> ROADMAP.md queue-1 item
 _TODO = {
-    "det2d_online": "item 16 (perception nets)",
-    "det3d_online": "item 16 (perception nets)",
-    "stereo_online": "item 16 (perception nets)",
-    "use_dense_flow": "item 14 (dense-flow tracking)",
-    "use_reid": "item 16 (perception nets)",
     "use_loop_closure": "item 17 (loop closure)",
 }
 
@@ -79,6 +85,7 @@ class FrameInput:
     boxes3d: Optional[list] = None         # List[perception.Box3D]
     disparity: Optional[np.ndarray] = None
     dynamic_mask: Optional[np.ndarray] = None  # True = dynamic pixel
+    flow: Optional[np.ndarray] = None          # [H,W,2] prev->cur flow
 
 
 class System:
@@ -138,12 +145,13 @@ class System:
             p_bc, q_bc, device=self.device)
         self.estimator.timer = self.timer
 
+        self._build_nets(cfg, intr_vals)
         self.mot = None
         self.inst_tracker = None
         if cfg.slam == SlamMode.DYNAMIC:
-            # ReID (embed_fn) waits for the perception nets (item 16)
             self.mot = MultiObjectTracker(
-                MotConfig(n_init=cfg.mot_n_init, max_age=cfg.mot_max_age))
+                MotConfig(n_init=cfg.mot_n_init, max_age=cfg.mot_max_age),
+                embed_fn=self._embed if self._reid is not None else None)
             self.inst_tracker = InstanceTracker(
                 InstanceTrackerConfig(
                     max_dynamic_cnt=cfg.max_dynamic_cnt,
@@ -163,6 +171,63 @@ class System:
         self._fe_pending: List[dict] = []
         self._fe_lag = 2
 
+    def _build_nets(self, cfg: VioConfig, intr_vals):
+        """The online perception nets the config asks for, under the
+        JAX System's conditions (image_process.cpp:149-162)."""
+        hw = (cfg.image_height, cfg.image_width)
+        dev = self.device
+        self.det2d = self.det3d = self.stereo_net = self.flow_net = None
+        self._reid = None
+        if cfg.det2d_online and cfg.slam != SlamMode.RAW:
+            self.det2d = models.OnlineDetector2D(
+                hw, score_thresh=cfg.det2d_score_thresh,
+                params_path=cfg.det2d_weights, device=dev)
+        if cfg.det3d_online and cfg.slam == SlamMode.DYNAMIC:
+            self.det3d = models.OnlineDetector3D(
+                hw, intr_vals[:4], params_path=cfg.det3d_weights,
+                device=dev)
+        if cfg.stereo_online and cfg.is_stereo:
+            self.stereo_net = models.OnlineStereoMatcher(
+                hw, params_path=cfg.stereo_weights, device=dev)
+        if cfg.use_dense_flow:
+            self.flow_net = models.OnlineFlowEstimator(
+                hw, params_path=cfg.flow_weights, device=dev)
+        if cfg.use_reid:
+            self._reid = models.ReidExtractor(
+                params_path=cfg.reid_weights, device=dev)
+        self._prev_img = None
+        self.last_flow = None
+
+    def _run_perception_nets(self, fi: FrameInput):
+        """The online nets, where the frame brings no offline artifact;
+        no flow on the first frame (and none without a net or a field)."""
+        t = self.timer
+        if self.det2d is not None and fi.seg is None:
+            with t.stage("pe.det2d"):
+                fi.seg = self.det2d(fi.img_left)
+        if self.det3d is not None and not fi.boxes3d:
+            with t.stage("pe.det3d"):
+                fi.boxes3d = self.det3d(fi.img_left)
+        if (self.stereo_net is not None and fi.disparity is None
+                and fi.img_right is not None):
+            with t.stage("pe.stereo"):
+                fi.disparity = self.stereo_net(fi.img_left, fi.img_right)
+        if fi.flow is not None:
+            self.last_flow = fi.flow              # offline artifact
+        elif self.flow_net is not None:
+            with t.stage("pe.flow"):
+                self.last_flow = self.flow_net(self._prev_img,
+                                               fi.img_left) \
+                    if self._prev_img is not None else None
+            self._prev_img = fi.img_left
+        else:
+            self.last_flow = None
+
+    def _embed(self, img, boxes):
+        """MOT's appearance embeddings (the ReID net), timed."""
+        with self.timer.stage("pe.reid"):
+            return self._reid(img, boxes)
+
     def process(self, fi: FrameInput):
         """Track one frame, run the backend, write its pose. Pipelined:
         dispatch this frame's tracker step, then finish the oldest frame
@@ -171,12 +236,14 @@ class System:
         if self.cfg.pipelined:
             return self._process_pipelined(fi)
         with t.stage("perception"):
+            self._run_perception_nets(fi)
             masks_by_tid, background_mask = self._perception(fi)
         with t.stage("frontend"):
             imgs_dev = self._upload(fi)
             feats = self.tracker.track(fi.img_left, fi.timestamp,
                                        mask=background_mask,
                                        img_right=fi.img_right,
+                                       flow=self.last_flow,
                                        imgs_dev=imgs_dev)
             lines = self._track_lines(fi, background_mask)
             if lines is not None:
@@ -209,6 +276,7 @@ class System:
         runs one frame behind whatever the frontend's depth)."""
         t = self.timer
         with t.stage("perception"):
+            self._run_perception_nets(fi)
             masks_by_tid, background_mask = self._perception(fi)
         # masked modes give the tracker a mask on every frame
         if self.cfg.slam != SlamMode.RAW and background_mask is None:
@@ -217,7 +285,8 @@ class System:
             imgs_dev = self._upload(fi)
             h = self.tracker.track_begin(
                 fi.img_left, fi.timestamp, mask=background_mask,
-                img_right=fi.img_right, imgs_dev=imgs_dev)
+                img_right=fi.img_right, flow=self.last_flow,
+                imgs_dev=imgs_dev)
             # the host LSD runs while the tracker's step is on the card
             lines = self._track_lines(fi, background_mask)
         out = None

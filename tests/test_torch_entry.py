@@ -2,8 +2,9 @@
 the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
 ROADMAP item (NAIVE, DYNAMIC and LinePoint run on the sequential and
-pipelined paths, mono+IMU and the extrinsic rotation calibration build;
-more than one card raises)."""
+pipelined paths, mono+IMU, the extrinsic rotation calibration, dense
+flow and the online nets build; loop closure and more than one card
+raise)."""
 
 import numpy as np
 import pytest
@@ -71,10 +72,23 @@ def test_default_device_is_cuda(name, tmp_path):
 @pytest.mark.parametrize("field", ["use_dense_flow", "use_loop_closure",
                                    "det2d_online"])
 def test_unported_system_switches_raise(field, tmp_path):
+    """Loop closure raises, naming its item; dense flow and the online
+    nets are ported: RAFT builds in every mode, SOLOv2 not in RAW (the
+    JAX System's conditions)."""
     cfg = VioConfig()
     setattr(cfg, field, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+    if field == "use_loop_closure":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+            System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+        return
+    system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+    assert (system.flow_net is not None) == (field == "use_dense_flow")
+    assert system.det2d is None
+    system.close()
+    cfg.slam = SlamMode.NAIVE
+    system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+    assert (system.det2d is not None) == (field == "det2d_online")
+    system.close()
 
 
 @pytest.mark.parametrize("mode", [SlamMode.NAIVE, SlamMode.DYNAMIC])

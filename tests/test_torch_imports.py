@@ -16,7 +16,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "dynamic_vins_tpu_torch"
-BANNED = ("jax", "jaxlib", "dynamic_vins_tpu", "cv2", "yaml", "PIL")
+BANNED = ("jax", "jaxlib", "flax", "dynamic_vins_tpu", "cv2", "yaml",
+          "PIL")
 
 
 def _port_modules():
@@ -27,7 +28,7 @@ def _port_modules():
 
 def test_scan_covers_every_module():
     """The scans below reach the DYNAMIC slice's modules, the mono
-    initialization's and LinePoint's too."""
+    initialization's, LinePoint's and the perception nets' too."""
     mods = set(_port_modules())
     for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
@@ -39,7 +40,10 @@ def test_scan_covers_every_module():
               "estimator.initializer", "estimator.ex_rotation",
               "sim.ba_problems", "sim.objects", "frontend.lsd",
               "frontend.line_tracker", "geometry.lines",
-              "factors.line_factor", "estimator.line_manager"):
+              "factors.line_factor", "estimator.line_manager",
+              "models.layers", "models.pretrained", "models.raft",
+              "models.stereo_net", "models.solov2", "models.det3d",
+              "models.reid", "training.data"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 
@@ -52,6 +56,25 @@ def test_import_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r})\n"
         "print(bad)\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_models_import_loads_no_jax():
+    """The perception nets, their weights loader and generators import
+    neither JAX nor flax nor the JAX package (they read its shipped
+    `.npz` files by path)."""
+    code = (
+        "import sys\n"
+        "import dynamic_vins_tpu_torch.models as m\n"
+        "from dynamic_vins_tpu_torch.models import (det3d, layers, "
+        "pretrained, raft, reid, solov2, stereo_net)\n"
+        "from dynamic_vins_tpu_torch.training import data\n"
+        "assert pretrained.weights_path('solo')\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'dynamic_vins_tpu'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
