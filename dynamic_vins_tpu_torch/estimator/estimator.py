@@ -951,6 +951,12 @@ class Estimator:
             o = self._pipe_drain_one()
             if o is not None:
                 outs.append(o)
+        if self._pipe_res is not None:
+            # the host's preintegration and prior follow the device
+            # residents, as after every dispatch in the JAX package: a
+            # loop correction, a checkpoint or a re-prime starts there
+            self._pres, self.prior = self._own(
+                (self._pipe_res.pres, self._pipe_res.prior))
         if self.im is not None:
             self.im._sync_pending()
         return outs

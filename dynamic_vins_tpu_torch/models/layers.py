@@ -9,9 +9,9 @@ kept where they differ from torch's defaults:
   * flax's GroupNorm: epsilon 1e-6, statistics in float32 as
     E[x^2] - E[x]^2, output cast to float32 whatever the compute type;
   * `jax.image.resize` samples at half-pixel centres and antialiases
-    (a triangle filter) when it shrinks: `resize` is `F.interpolate`
-    bilinear with `antialias=True` (equal to it shrinking and growing),
-    nearest is "nearest-exact";
+    (a triangle filter) when it shrinks: `resize` builds its weights and
+    applies them as two products, as XLA does (equal to it shrinking and
+    growing), nearest is "nearest-exact";
   * `nn.max_pool` is VALID: `F.max_pool2d(2, 2)`.
 
 Submodules carry the names flax gives them (`ConvGN_0`, `BasicBlock_3`,
@@ -24,6 +24,7 @@ draws, so parity runs carry the JAX parameters across instead.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -202,16 +203,36 @@ class FPN(nn.Module):
         return [post(p) for post, p in zip(self._post, out)]
 
 
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_size: int, out_size: int, dtype, device):
+    """[in, out] weights of `jax.image.resize(..., "bilinear")` along
+    one axis: half-pixel centres, the triangle kernel widened by the
+    shrink factor, columns normalized (computed in float64), kept on
+    the device (an upload a call would wait for the card's queue)."""
+    inv_scale = 1.0 / (out_size / in_size)
+    sample_f = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample_f[None, :] - np.arange(in_size)[:, None]) \
+        / max(inv_scale, 1.0)
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.from_numpy(np.where(inside[None, :], w, 0)).to(
+        device=device, dtype=dtype)
+
+
 def resize(x, hw):
-    """`jax.image.resize(..., "bilinear")` of [B,C,H,W] (or [C,H,W]) to
-    `hw`: half-pixel centres, a triangle filter when shrinking (the JAX
-    package's `upsample_to` and its other bilinear resizes)."""
-    if x.dim() == 3:
-        return resize(x[None], hw)[0]
+    """`jax.image.resize(..., "bilinear")` of [..., H, W] to `hw`:
+    half-pixel centres, a triangle filter when shrinking (the JAX
+    package's `upsample_to`, its other bilinear resizes and ORB's
+    pyramid). The rows' weights, then the columns', as XLA computes it:
+    antialiased interpolation sums the same taps in another order."""
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear",
-                         align_corners=False, antialias=True)
+    wy = _resize_weights(x.shape[-2], hw[0], x.dtype, x.device)
+    wx = _resize_weights(x.shape[-1], hw[1], x.dtype, x.device)
+    return torch.matmul(torch.matmul(wy.T, x), wx)
 
 
 

@@ -13,8 +13,9 @@ dynamic_vins dynamic_vins <config.yaml> <seq>`, system/main.cpp:426):
 Runs on the CUDA card; `--cpu` runs on the CPU instead, and without it
 a machine with no card raises. Images are decoded by `io/image_io` and
 configs read by `VioConfig.from_yaml`'s own parser, so neither OpenCV
-nor PyYAML is needed. Loop closure, `--devices > 1` and the line, flow
-and net configs raise naming their ROADMAP item.
+nor PyYAML is needed. `--loop-closure` adds ORB keyframes, loop edges
+and the live pose-graph correction, and writes `<output>_ego_tum_loop.txt`
+when a loop closed. `--devices > 1` raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -332,8 +333,7 @@ def main(argv=None):
                     help="device-resident pipelined steady state"
                          " (frontend + backend overlap)")
     ap.add_argument("--loop-closure", action="store_true",
-                    help="keyframe db + loop edges + pose-graph solve "
-                         "(not ported yet: raises)")
+                    help="keyframe db + loop edges + pose-graph solve")
     ap.add_argument("--devices", type=int, default=0,
                     help="shard the BA over N cards (not ported yet: "
                          "N > 1 raises)")

@@ -24,15 +24,22 @@ its temporal LK track from the second frame on; an offline
 `FrameInput.flow` takes precedence) and ReID (`use_reid`, MOT's
 appearance embeddings). Segmentations, boxes and disparities come back
 to the host, where the perception stage reads them; the flow field
-stays on the device for the tracker. Loop closure and the multi-device
-engine are not ported yet and raise.
+stays on the device for the tracker.
+
+With `use_loop_closure` every `loop_keyframe_stride`-th output frame
+becomes an ORB keyframe of the `loop.LoopCloser` (stage `loop`); on an
+accepted loop edge with `loop_live_correction` the pose graph is solved
+and the estimator's window re-anchored on it (live relocalization), and
+`close` writes the corrected keyframe trajectory beside the VIO one
+(`<prefix>_ego_tum_loop.txt`). The multi-device engine is not ported
+yet and raises.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,16 +58,12 @@ from dynamic_vins_tpu_torch.geometry import camera, lie_np
 from dynamic_vins_tpu_torch.geometry.camera import PinholeIntrinsics
 from dynamic_vins_tpu_torch.io import perception
 from dynamic_vins_tpu_torch.io.writers import KittiMotWriter, TumWriter
+from dynamic_vins_tpu_torch.loop import LoopCloser, LoopClosureConfig
 from dynamic_vins_tpu_torch.mot.tracker import (MotConfig,
                                                 MultiObjectTracker, iou)
 from dynamic_vins_tpu_torch.utils.config import SlamMode, VioConfig
 from dynamic_vins_tpu_torch.utils.precision import resolve_device
 from dynamic_vins_tpu_torch.utils.timing import StageTimer
-
-# VioConfig switches of paths not ported yet -> ROADMAP.md queue-1 item
-_TODO = {
-    "use_loop_closure": "item 17 (loop closure)",
-}
 
 
 def obs_capacity(cfg: VioConfig) -> int:
@@ -94,11 +97,6 @@ class System:
         """device: CUDA unless "cpu" is asked for; dtype: the
         estimator's float type, by default the device's (float32 on the
         card, float64 on the CPU); the tracker works in float32."""
-        for name, item in _TODO.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"VioConfig.{name} is not ported yet: ROADMAP queue "
-                    f"1 {item}")
         if cfg.devices and cfg.devices > 1:
             raise NotImplementedError(
                 "devices > 1 is not ported yet: ROADMAP queue 1 item 18")
@@ -144,6 +142,19 @@ class System:
                             line_weight=cfg.line_weight, dtype=dtype),
             p_bc, q_bc, device=self.device)
         self.estimator.timer = self.timer
+
+        # loop closure: keyframe database -> loop edges -> pose graph
+        self.loop_closer = None
+        if cfg.use_loop_closure:
+            self.loop_closer = LoopCloser(
+                LoopClosureConfig(min_gap=cfg.loop_min_gap,
+                                  prox_radius=cfg.loop_prox_radius),
+                intr, p_bc[0], q_bc[0], baseline=self.baseline,
+                device=self.device)
+        # frames buffered for loop keyframing, by timestamp: the
+        # pipelined output lags its input by up to 2 frames, and the
+        # keyframe's image must be that of the output's frame
+        self._loop_fi_buf: Dict[float, tuple] = {}
 
         self._build_nets(cfg, intr_vals)
         self.mot = None
@@ -362,13 +373,50 @@ class System:
         with t.stage("backend"):
             out = self.estimator.process_frame(feats, fi.imu,
                                                instances=instances)
+        drained = self._loop_keyframe(fi, out)
         with t.stage("output"):
             if out is not None:
                 self.tum_writer.write(out.timestamp, out.p, out.q)
+            # pipelined frames the loop correction drained, in order
+            for o in drained:
+                self.tum_writer.write(o.timestamp, o.p, o.q)
             if self.mot_writer is not None:
                 self._write_mot(fi)
         self.frame_idx += 1
         return out
+
+    def _loop_keyframe(self, fi: FrameInput, out):
+        """Loop closure for a finished frame: buffer its image, and if
+        the output's frame is on the keyframe stride, add it to the
+        database; on an accepted edge with live correction, solve the
+        pose graph and re-anchor the window and the stored keyframes.
+        Returns the pipelined outputs the correction drained."""
+        if self.loop_closer is None:
+            return []
+        cfg = self.cfg
+        self._loop_fi_buf[fi.timestamp] = (fi.img_left, fi.disparity,
+                                           self.frame_idx)
+        while len(self._loop_fi_buf) > 8:
+            self._loop_fi_buf.pop(next(iter(self._loop_fi_buf)))
+        kf = self._loop_fi_buf.pop(out.timestamp, None) \
+            if out is not None else None
+        if kf is None or kf[2] % cfg.loop_keyframe_stride:
+            return []
+        kf_img, kf_disp, kf_idx = kf
+        drained = []
+        with self.timer.stage("loop"):
+            edge = self.loop_closer.add_keyframe(
+                kf_img, out.timestamp, out.p, out.q, disparity=kf_disp,
+                frame_idx=kf_idx)
+            if edge is not None and cfg.loop_live_correction:
+                res = self.loop_closer.optimize()
+                if res is not None:
+                    p_g, q_g, _ = res
+                    kf = self.loop_closer.db.keyframes[edge.j]
+                    drained = self.estimator.apply_loop_correction(
+                        kf.p, kf.q, p_g[edge.j], q_g[edge.j])
+                    self.loop_closer.rebase(p_g, q_g)
+        return drained
 
     # ------------------------------------------------------------------
     def _perception(self, fi: FrameInput):
@@ -601,9 +649,20 @@ class System:
         return self.timer
 
     def close(self):
-        """Drain, close the trajectory file, return the stage means."""
+        """Drain, close the trajectory files (with loop edges, solve the
+        pose graph and write the corrected keyframe trajectory), return
+        the stage means."""
         self.drain()
         self.tum_writer.close()
         if self.mot_writer is not None:
             self.mot_writer.close()
+        if self.loop_closer is not None and self.loop_closer.edges:
+            res = self.loop_closer.optimize()
+            if res is not None:
+                p, q, _ = res
+                path = self.tum_writer._f.name.replace(
+                    "_ego_tum.txt", "_ego_tum_loop.txt")
+                with TumWriter(path) as w:
+                    for k, kf in enumerate(self.loop_closer.db.keyframes):
+                        w.write(kf.timestamp, p[k], q[k])
         return self.timer.summary()

@@ -22,7 +22,7 @@ tests/test_torch_dynamic_system.py), and the JAX package's
 solve at the same read.
 
 Also: without `--cpu` the port's CLI runs on the card and raises where
-there is none; loop closure and `--devices 2` raise naming their
+there is none; `--loop-closure` runs; `--devices 2` raises naming its
 ROADMAP item.
 """
 
@@ -283,13 +283,33 @@ def test_cli_matches_jax(tmp_path, monkeypatch, case, capsys):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--loop-closure"], "ROADMAP.*item 17"),
     (["--devices", "2"], "ROADMAP.*item 18")])
 def test_cli_unported_switches_raise(tmp_path, flag, match):
     args = ["--dataset", "synthetic", "--frames", "3", "--output",
             str(tmp_path / "run"), "--cpu"] + flag
     with pytest.raises(NotImplementedError, match=match):
         trun.main(args)
+
+
+def test_cli_runs_with_loop_closure(tmp_path, monkeypatch):
+    """--loop-closure builds the System's loop closer and runs: a pose
+    for every frame; the synthetic dataset feeds features, not images,
+    so no keyframe and no loop file."""
+    built = []
+    real_system = trun._system
+
+    def spy(cfg, args):
+        built.append(real_system(cfg, args))
+        return built[-1]
+
+    monkeypatch.setattr(trun, "_system", spy)
+    trun.main(["--dataset", "synthetic", "--frames", "3", "--window", "4",
+               "--output", str(tmp_path / "run"), "--cpu",
+               "--loop-closure"])
+    assert len(built) == 1 and built[0].cfg.use_loop_closure
+    assert built[0].loop_closer is not None
+    assert len(np.loadtxt(str(tmp_path / "run_ego_tum.txt"))) == 3
+    assert not (tmp_path / "run_ego_tum_loop.txt").exists()
 
 
 def test_cli_runs_on_the_card_unless_cpu(tmp_path):

@@ -3,8 +3,8 @@ the CPU (and raise without a card rather than land on the CPU), and the
 switches of paths not ported yet raise NotImplementedError naming their
 ROADMAP item (NAIVE, DYNAMIC and LinePoint run on the sequential and
 pipelined paths, mono+IMU, the extrinsic rotation calibration, dense
-flow and the online nets build; loop closure and more than one card
-raise)."""
+flow, the online nets and loop closure build; more than one card
+raises)."""
 
 import numpy as np
 import pytest
@@ -72,14 +72,19 @@ def test_default_device_is_cuda(name, tmp_path):
 @pytest.mark.parametrize("field", ["use_dense_flow", "use_loop_closure",
                                    "det2d_online"])
 def test_unported_system_switches_raise(field, tmp_path):
-    """Loop closure raises, naming its item; dense flow and the online
-    nets are ported: RAFT builds in every mode, SOLOv2 not in RAW (the
-    JAX System's conditions)."""
+    """Dense flow, the online nets and loop closure are ported: RAFT
+    builds in every mode, SOLOv2 not in RAW (the JAX System's
+    conditions); the loop closer builds on the System's device, and
+    close() with no loop edge writes no loop file."""
     cfg = VioConfig()
     setattr(cfg, field, True)
     if field == "use_loop_closure":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
-            System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
+        system = System(cfg, output_prefix=str(tmp_path / "run"),
+                        device="cpu")
+        assert system.loop_closer.device == torch.device("cpu")
+        system.close()
+        assert (tmp_path / "run_ego_tum.txt").exists()
+        assert not (tmp_path / "run_ego_tum_loop.txt").exists()
         return
     system = System(cfg, output_prefix=str(tmp_path / "run"), device="cpu")
     assert (system.flow_net is not None) == (field == "use_dense_flow")
