@@ -219,6 +219,31 @@ Phases (any failure exits non-zero before the result lines):
      the CPU's Scharr/gather LK form the card meets the gate as the CPU
      does (1.0930 against 3.2336 m); tests/loop_live_witness.py runs
      either System with either form (PERF.md).
+ 20. training: the perception nets' training on the card (autograd over
+     the port's modules, the optax-equal AdamW of `training/trainer`),
+     nothing on the CPU. (a) tests/test_training.py's five protocols at
+     their sizes, steps and learning rates from the port's seeded init:
+     stereo (48x64, max_disp 16) below 0.5x its first loss after 40
+     steps, flow (RAFT, 3 updates) below 0.8x after 25, SOLOv2 and FCOS3D
+     (96x128) below 0.7x after 20, ReID (embeddings of 32) inter- minus
+     intra-class cosine distance > 0.1 after 40. (b) Each of the five
+     training-CLI tasks (`training/cli.build_task`: its models and the
+     manifest's model kwargs) at 96x128 and its `RECIPES` batch (solo 4,
+     det3d 4, stereo 4, flow 2, ReID 16) for 30 steps on fresh batches
+     from `next_batch` (made before the timing): ms a step (CUDA events
+     over steps 10-29), peak device memory, first and last loss; every
+     loss finite. (c) `tools.train_shipped_weights` into output/: stereo
+     at its full recipe (700 steps), the other four at scale 0.02; each
+     file loads back through `load_online(params_path=...)` and runs;
+     the retrained stereo net meets phase 17's gate (< 2.5 px on its
+     batch) and < 0.5x the untrained net's loss. (d) The SOLOv2 and
+     FCOS3D gates of tests/test_shipped_weights.py:52-61 on the shipped
+     weights with the port's losses on that test's batch: SOLOv2 < 1.6
+     and < 0.6x the untrained loss, FCOS3D < 4.0 and < 0.7x. (e)
+     `tools.precompute` over phase 12's KITTI tree (5 frames, tasks seg,
+     det3d, disp, flow): every artifact read back with the port's
+     readers; ms a frame, twice (the first run builds cuDNN's plans).
+     `dynamic_vins_tpu/weights/` is unchanged after the phase.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -228,8 +253,11 @@ Imports nothing of JAX nor of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -299,6 +327,13 @@ PGO_NODES = 512            # LoopClosureConfig.max_keyframes
 PGO_LOOPS = 8
 PGO_ATOL_M = 1e-3          # card against CPU, float64 both
 GRAVITY = 9.81
+TRAIN_HW = (96, 128)       # the training CLI's default size
+TRAIN_STEPS = 30           # phase 20b, on fresh batches
+TRAIN_TIMED_FROM = 10      # 20b's CUDA-event window: steps 10-29
+RETRAIN_SCALE = 0.02       # 20c: the four tasks other than stereo
+SHIPPED_GATES = {"solo": (1.6, 0.6),      # tests/test_shipped_weights.py
+                 "det3d": (4.0, 0.7)}     # :52-61 (loss, x untrained)
+PRE_FRAMES = 5             # 20e: frames of phase 12's KITTI tree
 
 
 def fail(msg: str):
@@ -2544,6 +2579,338 @@ def loop_phase(torch, dev, seq):
     return dict(runs=runs, pgo=pgo)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training the perception nets
+# ---------------------------------------------------------------------------
+def _train_loss(task):
+    """tests/test_training.py's loss of `task` on a placed batch."""
+    from dynamic_vins_tpu_torch.training import losses
+    from dynamic_vins_tpu_torch.training.cli import _norm
+
+    def stereo(m, b):
+        l = losses.stereo_loss(m(_norm(b[0]), _norm(b[1])), b[2], b[3])
+        return l, {}
+
+    def flow(m, b):
+        l = losses.flow_loss(m(_norm(b[0]), _norm(b[1])), b[2], b[3])
+        return l, {}
+
+    def solo(m, b):
+        k, s, mf = m(_norm(b[0]))
+        return losses.solo_loss(k, s, mf, b[1], b[2], b[3],
+                                num_classes=8)[0], {}
+
+    def det3d(m, b):
+        return losses.fcos3d_loss(m(_norm(b[0])), b[1], num_classes=6)[0], {}
+
+    def reid(m, b):
+        return losses.triplet_loss(m(_norm(b[0])), b[1]), {}
+
+    return dict(stereo=stereo, flow=flow, solo=solo, det3d=det3d,
+                reid=reid)[task]
+
+
+def training_gates_phase(torch, dev, card):
+    """Phase 20a: tests/test_training.py's protocols on the card."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.models.det3d import FCOS3D
+    from dynamic_vins_tpu_torch.models.layers import seeded
+    from dynamic_vins_tpu_torch.models.raft import RAFT
+    from dynamic_vins_tpu_torch.models.reid import ReidNet
+    from dynamic_vins_tpu_torch.models.solov2 import Solov2
+    from dynamic_vins_tpu_torch.models.stereo_net import StereoNet
+    from dynamic_vins_tpu_torch.training import TrainConfig, Trainer
+    from dynamic_vins_tpu_torch.training import data
+    from dynamic_vins_tpu_torch.training.cli import _norm
+
+    grids = (12, 8, 6, 4)
+    # (model, batch, lr, total_steps, steps after the first, gate ratio)
+    protocols = dict(
+        stereo=(StereoNet(max_disp=16, gen=seeded(0)),
+                data.stereo_batch(np.random.default_rng(0), 2, (48, 64),
+                                  16), 2e-3, 60, 39, 0.5),
+        flow=(RAFT(iters=3, gen=seeded(0)),
+              data.flow_batch(np.random.default_rng(1), 2, (48, 64), 3.0),
+              1e-3, 40, 24, 0.8),
+        solo=(Solov2(num_classes=8, grid_sizes=grids, gen=seeded(0)),
+              data.seg_batch(np.random.default_rng(2), 2, (96, 128),
+                             num_classes=8, grid_sizes=grids,
+                             mask_hw=(24, 32)), 1e-3, 40, 19, 0.7),
+        det3d=(FCOS3D(num_classes=6, gen=seeded(0)),
+               data.det3d_batch(np.random.default_rng(3), 2, (96, 128),
+                                num_classes=6), 1e-3, 40, 19, 0.7),
+        reid=(ReidNet(embed_dim=32, gen=seeded(0)),
+              data.reid_batch(np.random.default_rng(4), num_ids=4,
+                              views=4, hw=(32, 16)), 1e-3, 60, 39, None))
+    out = {}
+    for task, (model, batch, lr, total, more, ratio) in protocols.items():
+        init = sum(float(p.abs().sum()) for p in model.parameters())
+        tr = Trainer(_train_loss(task), model,
+                     TrainConfig(learning_rate=lr, total_steps=total),
+                     device=dev)
+        t0 = time.perf_counter()
+        first, _ = tr.step(batch)
+        for _ in range(more):
+            last, _ = tr.step(batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        line = (f"train-gates: {task}: {more + 1} steps in {secs:.2f} s, "
+                f"loss {first:.4f} -> {last:.4f} (the seeded init's sum "
+                f"|w| {init:.6f})")
+        if ratio is not None:
+            print(f"{line} ({last / first:.3f}x, gate < {ratio}x); {card}",
+                  flush=True)
+            if not (np.isfinite(last) and last < ratio * first):
+                fail(f"train-gates: {task} loss {first} -> {last}, not "
+                     f"below {ratio}x")
+        else:
+            im, ids = batch
+            with torch.no_grad():
+                emb = tr.model(_norm(torch.from_numpy(im).to(dev)))
+            emb = emb.cpu().numpy()
+            d = 1.0 - emb @ emb.T
+            same = ids[:, None] == ids[None, :]
+            eye = np.eye(len(ids), dtype=bool)
+            intra, inter = d[same & ~eye].mean(), d[~same].mean()
+            print(f"{line}; cosine distance intra {intra:.4f}, inter "
+                  f"{inter:.4f} (gate: inter - intra > 0.1); {card}",
+                  flush=True)
+            if not (np.isfinite(last) and inter > intra + 0.1):
+                fail(f"train-gates: reid intra {intra} inter {inter}")
+        out[task] = dict(first=first, last=last, s=secs)
+    return out
+
+
+def training_width_phase(torch, dev, card):
+    """Phase 20b: the five CLI tasks at 96x128 and their recipes'
+    batches, on fresh batches."""
+    import math
+
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.tools.train_shipped_weights import RECIPES
+    from dynamic_vins_tpu_torch.training import TrainConfig, Trainer
+    from dynamic_vins_tpu_torch.training import cli
+
+    out = {}
+    for task, (model_kw, steps, batch, lr) in RECIPES.items():
+        model, loss_fn, next_batch = cli.build_task(
+            task, TRAIN_HW, np.random.default_rng(SEED), batch, dev)
+        t0 = time.perf_counter()
+        batches = [next_batch() for _ in range(TRAIN_STEPS)]
+        gen_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr = Trainer(loss_fn, model,
+                     TrainConfig(learning_rate=lr, total_steps=steps),
+                     device=dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        losses = []
+        for i, bt in enumerate(batches):
+            if i == TRAIN_TIMED_FROM:
+                torch.cuda.synchronize()
+                a.record()
+            losses.append(tr.step(bt)[0])
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / (TRAIN_STEPS - TRAIN_TIMED_FROM)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"train-width: {task} (model {json.dumps(model_kw)}), "
+              f"{TRAIN_HW[1]}x{TRAIN_HW[0]}, batch {batch}: {ms:.3f} ms a "
+              f"step (CUDA events over steps {TRAIN_TIMED_FROM}-"
+              f"{TRAIN_STEPS - 1}), peak device memory {peak:.1f} MiB "
+              f"above the {base / 2**20:.1f} MiB held before, "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; the host "
+              f"generator {gen_ms:.1f} ms a batch; {card}", flush=True)
+        if not all(math.isfinite(l) for l in losses):
+            fail(f"train-width: {task}: a loss is not finite: {losses}")
+        out[task] = dict(ms=ms, peak_mib=peak, first=losses[0],
+                         last=losses[-1], batch=batch)
+        del tr, model, batches
+    return out
+
+
+def retrain_phase(torch, dev, card):
+    """Phase 20c: the port's weights tool, each file loaded back, the
+    retrained stereo net held to phase 17's gate."""
+    import shutil
+
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.models import layers, pretrained
+    from dynamic_vins_tpu_torch.models.stereo_net import StereoNet
+    from dynamic_vins_tpu_torch.tools import train_shipped_weights as tool
+    from dynamic_vins_tpu_torch.training import data, losses
+    from dynamic_vins_tpu_torch.training.cli import _norm
+
+    out_dir = REPO / "output" / "chip_smoke_weights"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    tool.main(["--tasks", "stereo", "--out-dir", str(out_dir)])
+    stereo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tool.main(["--tasks", "solo,det3d,flow,reid", "--scale",
+               str(RETRAIN_SCALE), "--out-dir", str(out_dir)])
+    rest_s = time.perf_counter() - t0
+    with open(out_dir / "MANIFEST.json") as f:
+        man = json.load(f)
+    if set(man) != set(tool.RECIPES):
+        fail(f"retrain: the manifest holds {sorted(man)}")
+    img = np.random.default_rng(SEED).uniform(0, 255, TRAIN_HW).astype(
+        np.float32)
+    intr = [460.0, 460.0, TRAIN_HW[1] / 2, TRAIN_HW[0] / 2]
+    for task, entry in man.items():
+        path = str(out_dir / entry["file"])
+        net = pretrained.load_online(task, TRAIN_HW, intr, device=dev,
+                                     params_path=path)
+        if task in ("stereo", "flow"):
+            net(img, img)
+        elif task == "reid":
+            net(np.repeat(img[..., None], 3, -1), np.array([[0, 0, 32, 64]]))
+        else:
+            net(img)
+    # phase 17's stereo gate on its batch, and against the untrained net
+    rng = np.random.default_rng(ACC_SEED)
+    data.stereo_batch(rng, 2, ACC_HW, 32)
+    left, right, disp, valid = (torch.from_numpy(a).to(dev) for a in
+                                data.stereo_batch(rng, 2, ACC_HW, 32))
+    epe = {}
+    for name, path in (("retrained", str(out_dir / "stereo.npz")),
+                       ("untrained", None)):
+        net = pretrained.prepare(StereoNet(max_disp=32,
+                                           gen=layers.seeded(0)), path,
+                                 torch.float32, dev)
+        with torch.no_grad():
+            epe[name] = float(losses.stereo_loss(
+                net(_norm(left), _norm(right)), disp, valid))
+    print(f"retrain: stereo {man['stereo']['trained']['steps']} steps in "
+          f"{stereo_s:.1f} s, the other four at scale {RETRAIN_SCALE} in "
+          f"{rest_s:.1f} s, each file loaded back through load_online; "
+          f"the retrained stereo net's smooth-L1 EPE {epe['retrained']:.4f}"
+          f" px (gate < {ACC_STEREO_PX}), untrained {epe['untrained']:.4f}"
+          f" px (gate < 0.5x); manifest {json.dumps(man)}; {card}",
+          flush=True)
+    if not (epe["retrained"] < ACC_STEREO_PX
+            and epe["retrained"] < 0.5 * epe["untrained"]):
+        fail(f"retrain: the retrained stereo net misses its gate: {epe}")
+    return dict(stereo_s=stereo_s, rest_s=rest_s, **epe)
+
+
+def shipped_gates_phase(torch, dev, card):
+    """Phase 20d: SOLOv2's and FCOS3D's shipped weights against
+    tests/test_shipped_weights.py's gates, with the port's losses."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.models import pretrained
+    from dynamic_vins_tpu_torch.training import cli
+    from dynamic_vins_tpu_torch.training.trainer import to_device
+
+    out = {}
+    for task, (gate, ratio) in SHIPPED_GATES.items():
+        model, loss_fn, gen = cli.build_task(
+            task, ACC_HW, np.random.default_rng(ACC_SEED), 2, dev)
+        batch = to_device(gen(), dev)
+        with torch.no_grad():
+            untrained = float(loss_fn(model, batch)[0])
+            pretrained.prepare(model, pretrained.weights_path(task),
+                               torch.float32, dev)
+            trained = float(loss_fn(model, batch)[0])
+        print(f"shipped-gates: {task}: loss {trained:.4f} (gate < {gate}), "
+              f"untrained {untrained:.4f} ({trained / untrained:.3f}x, "
+              f"gate < {ratio}x); {card}", flush=True)
+        if not (trained < gate and trained < ratio * untrained):
+            fail(f"shipped-gates: {task}: {trained} against {untrained}")
+        out[task] = dict(loss=trained, untrained=untrained)
+    return out
+
+
+def precompute_phase(torch, card):
+    """Phase 20e: the port's precompute tool over phase 12's KITTI tree."""
+    import shutil
+
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io import perception
+    from dynamic_vins_tpu_torch.tools import precompute
+
+    tree = REPO / "output" / "chip_smoke_cli" / "kitti"
+    left, right = tree / "image_02" / "0000", tree / "image_03" / "0000"
+    out = REPO / "output" / "chip_smoke_precompute"
+    ms = []
+    for run in range(2):
+        shutil.rmtree(out, ignore_errors=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            precompute.main(["--left", str(left), "--right", str(right),
+                             "--out", str(out), "--tasks",
+                             "seg,det3d,disp,flow", "--max-frames",
+                             str(PRE_FRAMES)])
+        print(buf.getvalue(), end="", flush=True)
+        # the tool's own frame loop (the nets' loading excluded)
+        ms.append(float(re.search(r"\(([0-9.]+) ms/frame\)",
+                                  buf.getvalue()).group(1)))
+    dets = boxes = 0
+    for i in range(PRE_FRAMES):
+        name = f"{i:06d}"
+        seg = perception.read_solo_seg_pt(str(out / "seg"), name, 0.0)
+        txt = out / "det3d" / f"{name}.txt"
+        disp = perception.read_disparity_png(str(out / "disp" /
+                                                 f"{name}.png"))
+        if seg is None or not txt.exists() or disp is None:
+            fail(f"precompute: frame {name}: an artifact is missing")
+        dets += len(seg.scores)
+        boxes += len(perception.read_fcos3d_txt(str(txt), 0.0))
+        if disp.shape != (480, 752) or not np.isfinite(disp).all():
+            fail(f"precompute: frame {name}: disparity {disp.shape}")
+        flow_path = out / "flow" / f"{name}.npy"
+        if i > 0:
+            flow = np.load(flow_path)
+            if flow.shape != (480, 752, 2) or not np.isfinite(flow).all():
+                fail(f"precompute: frame {name}: flow {flow.shape}")
+        elif flow_path.exists():
+            fail("precompute: a flow field for the first frame")
+    print(f"precompute: {PRE_FRAMES} frames of phase 12's KITTI tree "
+          f"(752x480), tasks seg, det3d, disp, flow on the card: "
+          f"{ms[0]:.1f} ms a frame (first run: cuDNN's plans included), "
+          f"{ms[1]:.1f} ms a frame (second run; the tool's frame loop, "
+          f"the nets' loading excluded); read "
+          f"back: {dets} detections, {boxes} boxes, {PRE_FRAMES} "
+          f"disparities, {PRE_FRAMES - 1} flow fields; {card}", flush=True)
+    return dict(ms_first=ms[0], ms=ms[1])
+
+
+def weights_digest():
+    """sha256 of every file under dynamic_vins_tpu/weights/."""
+    import hashlib
+
+    wdir = REPO / "dynamic_vins_tpu" / "weights"
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(wdir.iterdir())}
+
+
+def training_phase(torch, dev, card):
+    """Phase 20 (see the module docstring)."""
+    import threading
+
+    # the steps are launch-bound: other threads alive share the host
+    names = [t.name for t in threading.enumerate()]
+    print(f"training: threads alive {names}", flush=True)
+    before = weights_digest()
+    out = dict(gates=training_gates_phase(torch, dev, card),
+               width=training_width_phase(torch, dev, card),
+               retrain=retrain_phase(torch, dev, card),
+               shipped=shipped_gates_phase(torch, dev, card),
+               precompute=precompute_phase(torch, card))
+    if weights_digest() != before:
+        fail("training: dynamic_vins_tpu/weights/ changed")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2601,6 +2968,7 @@ def main():
     accuracy_phase(torch, dev)
     online = online_phase(torch, dev, seq, dframes, imus)
     loop = loop_phase(torch, dev, seq)
+    training_phase(torch, dev, card)
     # launches of every main-path phase (4, 6-13, 15, 18, 19), each
     # counted from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)

@@ -6,8 +6,10 @@ dicts for nested tuples, e.g. `{"lin_state": {...}, "jacobian": ...}`);
 these functions return the port's types on a given device and dtype.
 A whole estimator's state crosses as a checkpoint instead:
 `Estimator.save_checkpoint` / `load_checkpoint` write and read the JAX
-package's `.npz` keys, in either direction. This module imports nothing
-of JAX.
+package's `.npz` keys, in either direction. A net's parameters cross
+both ways too: `flax_params` (flattened flax -> state dict) and
+`to_flax` (module -> flattened flax, `solov2.save_params`' keys). This
+module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -184,3 +186,28 @@ def flax_params(flat, module: torch.nn.Module) -> dict:
                 f"{tuple(state[name].shape)}")
         state[name] = t.to(state[name].dtype)
     return state
+
+
+def to_flax(module: torch.nn.Module) -> dict:
+    """The flattened flax parameters {key: float32 array} of one of the
+    port's nets, the inverse of `flax_params`: keys in the form of the
+    JAX package's `solov2.save_params` ("('params')/('FPN_0')/('lat0')/
+    ('kernel')"), a `weight` named `scale` on a GroupNorm and `kernel`
+    elsewhere, Conv OIHW -> HWIO, 3-D conv OIDHW -> DHWIO, Dense
+    [out,in] -> [in,out]. `np.savez(path, **to_flax(m))` writes a
+    checkpoint the JAX package's `load_params` reads."""
+    from dynamic_vins_tpu_torch.models.layers import GroupNorm
+
+    out = {}
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            leaf = pname
+            if pname == "weight":
+                leaf = "scale" if isinstance(mod, GroupNorm) else "kernel"
+            path = ["params"] + (mname.split(".") if mname else []) + [leaf]
+            t = p.detach().to("cpu", torch.float32)
+            if t.dim() >= 2:
+                t = t.permute(*range(2, t.dim()), 1, 0)
+            out["/".join(f"('{q}')" for q in path)] = \
+                np.ascontiguousarray(t.numpy())
+    return out

@@ -64,9 +64,11 @@ def prepare(model: torch.nn.Module, params_path: Optional[str], dtype,
 def load_online(task: str, image_hw, intrinsics=None, device=None,
                 **overrides):
     """The online wrapper of `task` ('solo' | 'det3d' | 'stereo' |
-    'flow' | 'reid') with its shipped weights; the model-shape kwargs
-    come from the manifest, extra kwargs override the wrapper's own."""
-    path = weights_path(task)
+    'flow' | 'reid') with its shipped weights, or those of
+    `params_path=` (a checkpoint of the same shapes, e.g. one that
+    `tools.train_shipped_weights` wrote); the model-shape kwargs come
+    from the manifest, extra kwargs override the wrapper's own."""
+    path = overrides.pop("params_path", None) or weights_path(task)
     kw = {**hyperparams(task), **overrides}
     if task == "solo":
         from dynamic_vins_tpu_torch.models.solov2 import OnlineDetector2D

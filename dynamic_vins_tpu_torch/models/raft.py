@@ -44,11 +44,12 @@ class Encoder(nn.Module):
 
 
 def all_pairs_correlation(f1, f2):
-    """[c,h,w] x [c,h,w] -> [h*w, h, w] correlation volume."""
-    c, h, w = f1.shape
-    a = f1.reshape(c, h * w).t().to(torch.float32)
-    b = f2.reshape(c, h * w).to(torch.float32)
-    return (a @ b / math.sqrt(c)).reshape(h * w, h, w)
+    """[...,c,h,w] x [...,c,h,w] -> [..., h*w, h, w] correlation
+    volume (one product an image)."""
+    *lead, c, h, w = f1.shape
+    a = f1.reshape(*lead, c, h * w).transpose(-1, -2).to(torch.float32)
+    b = f2.reshape(*lead, c, h * w).to(torch.float32)
+    return (a @ b / math.sqrt(c)).reshape(*lead, h * w, h, w)
 
 
 def lookup(corr, coords, radius: int = 3):
@@ -101,7 +102,10 @@ class UpdateBlock(nn.Module):
 
 
 class RAFT(nn.Module):
-    """(img1, img2) normalized [1,3,H,W] -> flow [1,2,H,W] (pixels)."""
+    """(img1, img2) normalized [B,3,H,W] -> flow [B,2,H,W] (pixels).
+    Each image of the batch is its own problem (GroupNorm's statistics
+    and the correlation volume are per image): the batch computes what
+    the JAX package's single-image RAFT computes vmapped over it."""
 
     def __init__(self, iters: int = 8, radius: int = 3, hidden: int = 64,
                  gen=None):
@@ -113,23 +117,25 @@ class RAFT(nn.Module):
                                          gen=gen)
 
     def forward(self, img1, img2):
-        f1, f2 = self.fnet(img1)[0], self.fnet(img2)[0]          # [c,h,w]
+        f1, f2 = self.fnet(img1), self.fnet(img2)                # [B,c,h,w]
         ctx_all = self.cnet(img1)
         h = torch.tanh(ctx_all[:, :self.hidden])
         ctx = F.relu(ctx_all[:, self.hidden:])
-        _, hgt, wid = f1.shape
-        corr = all_pairs_correlation(f1, f2)                     # [N,h,w]
+        bsz, _, hgt, wid = f1.shape
+        n = hgt * wid
+        corr = all_pairs_correlation(f1, f2).reshape(bsz * n, hgt, wid)
         ys, xs = torch.meshgrid(
             torch.arange(hgt, dtype=torch.float32, device=f1.device),
             torch.arange(wid, dtype=torch.float32, device=f1.device),
             indexing="ij")
-        base = torch.stack([xs, ys], -1).reshape(-1, 2)          # [N,2]
-        flow = torch.zeros((1, 2, hgt, wid), dtype=torch.float32,
+        base = torch.stack([xs, ys], -1).reshape(1, n, 2)        # [1,N,2]
+        flow = torch.zeros((bsz, 2, hgt, wid), dtype=torch.float32,
                            device=f1.device)
         for _ in range(self.iters):
-            coords = base + flow[0].permute(1, 2, 0).reshape(-1, 2)
-            cf = lookup(corr, coords, self.radius)               # [N,K]
-            cf = cf.t().reshape(1, -1, hgt, wid)
+            coords = base + flow.permute(0, 2, 3, 1).reshape(bsz, n, 2)
+            cf = lookup(corr, coords.reshape(bsz * n, 2), self.radius)
+            cf = cf.reshape(bsz, n, -1).transpose(1, 2).reshape(
+                bsz, -1, hgt, wid)                               # [B,K,h,w]
             h, dflow = self.UpdateBlock_0(h, ctx, cf, flow)
             flow = flow + dflow.to(torch.float32)
         return layers.resize(flow, img1.shape[-2:]) * 8.0

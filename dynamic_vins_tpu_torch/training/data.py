@@ -1,15 +1,17 @@
-"""Synthetic labeled batches for the perception nets: the numpy
-generators of the JAX package's `training/data.py` for stereo, optical
-flow and ReID, copied (the same draws for the same `rng`). They have
-exact ground truth; `chip_smoke.py` checks the shipped weights' accuracy
-on fresh batches from them. The segmentation and 3D-detection
-generators build their targets with the training losses and come with
-the training port.
+"""Synthetic labeled batches for training the perception nets: the
+numpy generators of the JAX package's `training/data.py`, copied (the
+same draws for the same `rng`, the same arrays). Each has exact ground
+truth: stereo, optical flow, ReID, and the segmentation and 3D-detection
+scenes, whose targets come from the target builders of
+`training/losses.py`. `training/cli.py` trains on them; `chip_smoke.py`
+checks the shipped weights on fresh batches from them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from dynamic_vins_tpu_torch.training import losses
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +129,52 @@ def flow_batch(rng, batch: int, hw=(96, 128), max_flow: float = 8.0):
 
 
 # ---------------------------------------------------------------------------
+# instance segmentation (SOLOv2)
+# ---------------------------------------------------------------------------
+def seg_batch(rng, batch: int, hw=(96, 128), max_inst: int = 4,
+              num_classes: int = 8, grid_sizes=(36, 24, 16, 12),
+              mask_hw=None):
+    """Scenes of textured ellipses over textured background.
+
+    Returns (img [B,H,W,3], cate_target [B,G], inst_index [B,G],
+    gt_masks_low [B,max_inst,h4,w4]) ready for `losses.solo_loss`."""
+    h, w = hw
+    h4, w4 = mask_hw if mask_hw is not None else (h // 4, w // 4)
+    imgs = np.zeros((batch, h, w, 3), np.float32)
+    G = sum(s * s for s in grid_sizes)
+    cate_t = np.zeros((batch, G), np.int32)
+    inst_t = np.zeros((batch, G), np.int32)
+    masks_low = np.zeros((batch, max_inst, h4, w4), np.float32)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for b in range(batch):
+        tex = _smooth_noise(rng, h, w) * 0.5
+        n = int(rng.integers(1, max_inst + 1))
+        masks = np.zeros((n, h, w), bool)
+        labels = rng.integers(0, num_classes, n).astype(np.int32)
+        for i in range(n):
+            cy = rng.uniform(0.25 * h, 0.75 * h)
+            cx = rng.uniform(0.25 * w, 0.75 * w)
+            ry = rng.uniform(0.1 * h, 0.3 * h)
+            rx = rng.uniform(0.1 * w, 0.3 * w)
+            m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            masks[i] = m
+            # distinct intensity per class for learnable appearance
+            tex = np.where(m, 0.55 + 0.05 * labels[i] +
+                           0.1 * _smooth_noise(rng, h, w), tex)
+        imgs[b] = _rgb(np.clip(tex, 0, 1))
+        valid = np.ones(n, bool)
+        cate, idx = losses.solo_targets(masks, labels, valid,
+                                        grid_sizes, num_classes)
+        cate_t[b], inst_t[b] = cate, idx
+        for i in range(n):
+            ml = masks[i][::h // h4 if h // h4 else 1,
+                          ::w // w4 if w // w4 else 1]
+            masks_low[b, i, :ml.shape[0], :ml.shape[1]] = \
+                ml[:h4, :w4].astype(np.float32)
+    return imgs, cate_t, inst_t, masks_low
+
+
+# ---------------------------------------------------------------------------
 # ReID
 # ---------------------------------------------------------------------------
 def reid_batch(rng, num_ids: int, views: int, hw=(64, 32),
@@ -153,3 +201,52 @@ def reid_batch(rng, num_ids: int, views: int, hw=(64, 32),
             ids[k] = i
             k += 1
     return imgs, ids
+
+
+# ---------------------------------------------------------------------------
+# monocular 3D detection (FCOS3D)
+# ---------------------------------------------------------------------------
+def det3d_batch(rng, batch: int, hw=(96, 128), max_boxes: int = 3,
+                num_classes: int = 10, strides=(8, 16, 32, 64),
+                focal: float = 460.0):
+    """Cuboid silhouettes at known camera-frame poses.
+
+    Returns (imgs [B,H,W,3], level_targets — a list per level of
+    stacked dicts matching `losses.fcos3d_loss`)."""
+    h, w = hw
+    imgs = np.zeros((batch, h, w, 3), np.float32)
+    per_level = None
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    for b in range(batch):
+        tex = _smooth_noise(rng, h, w) * 0.4
+        n = int(rng.integers(1, max_boxes + 1))
+        uvd = np.zeros((n, 3), np.float32)
+        dims = np.zeros((n, 3), np.float32)
+        yawv = np.zeros(n, np.float32)
+        lab = rng.integers(0, num_classes, n).astype(np.int32)
+        for i in range(n):
+            d = rng.uniform(8.0, 30.0)
+            u = rng.uniform(0.25 * w, 0.75 * w)
+            v = rng.uniform(0.3 * h, 0.7 * h)
+            dm = rng.uniform([1.2, 1.2, 3.0], [2.2, 2.0, 5.0])
+            yaw = rng.uniform(-np.pi, np.pi)
+            uvd[i] = [u, v, d]
+            dims[i] = dm
+            yawv[i] = yaw
+            # silhouette: rectangle of the projected extent
+            pw = focal * dm[2] / d / 2
+            ph = focal * dm[1] / d / 2
+            m = (np.abs(xx - u) < pw) & (np.abs(yy - v) < ph)
+            tex = np.where(m, 0.6 + 0.04 * lab[i], tex)
+        imgs[b] = _rgb(np.clip(tex, 0, 1))
+        tgts = losses.fcos3d_targets(uvd, dims, yawv, lab,
+                                     np.ones(n, bool), hw, strides,
+                                     num_classes)
+        if per_level is None:
+            per_level = [{k: [] for k in t} for t in tgts]
+        for li, t in enumerate(tgts):
+            for k2, v2 in t.items():
+                per_level[li][k2].append(v2)
+    stacked = [{k: np.stack(v) for k, v in lvl.items()}
+               for lvl in per_level]
+    return imgs, stacked

@@ -28,7 +28,8 @@ def _port_modules():
 
 def test_scan_covers_every_module():
     """The scans below reach the DYNAMIC slice's modules, the mono
-    initialization's, LinePoint's and the perception nets' too."""
+    initialization's, LinePoint's, the perception nets' and their
+    training's too."""
     mods = set(_port_modules())
     for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
@@ -43,7 +44,9 @@ def test_scan_covers_every_module():
               "factors.line_factor", "estimator.line_manager",
               "models.layers", "models.pretrained", "models.raft",
               "models.stereo_net", "models.solov2", "models.det3d",
-              "models.reid", "training.data"):
+              "models.reid", "training.data", "training.losses",
+              "training.trainer", "training.cli",
+              "tools.train_shipped_weights", "tools.precompute"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 
@@ -63,16 +66,22 @@ def test_import_loads_no_jax():
 
 
 def test_models_import_loads_no_jax():
-    """The perception nets, their weights loader and generators import
-    neither JAX nor flax nor the JAX package (they read its shipped
-    `.npz` files by path)."""
+    """The perception nets, their weights loader, generators, training
+    CLI and tools import neither JAX nor flax nor the JAX package (they
+    read its shipped `.npz` files by path); the training CLI parses its
+    arguments and builds a task without them."""
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import dynamic_vins_tpu_torch.models as m\n"
         "from dynamic_vins_tpu_torch.models import (det3d, layers, "
         "pretrained, raft, reid, solov2, stereo_net)\n"
-        "from dynamic_vins_tpu_torch.training import data\n"
+        "from dynamic_vins_tpu_torch.training import cli, data\n"
+        "from dynamic_vins_tpu_torch.tools import (precompute, "
+        "train_shipped_weights)\n"
         "assert pretrained.weights_path('solo')\n"
+        "cli.build_task('reid', (64, 32), np.random.default_rng(0), 8, "
+        "'cpu')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'dynamic_vins_tpu'))\n"
         "assert not bad, bad\n")
