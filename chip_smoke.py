@@ -244,6 +244,43 @@ Phases (any failure exits non-zero before the result lines):
      det3d, disp, flow): every artifact read back with the port's
      readers; ms a frame, twice (the first run builds cuDNN's plans).
      `dynamic_vins_tpu/weights/` is unchanged after the phase.
+ 21. tools: the bench-side tools on the card. (a) `tools.accuracy_probe`
+     (the bench protocol: 42 frames, window 11, 512 slots, 8192 rows,
+     0.5 px, pipelined) for seeds 0-2 in float32 and float64; the port's
+     own `--platform cpu --x64 --seeds 1` runs in a subprocess started
+     at phase 20 (4 threads, nice 19; no main-path phase runs beside
+     it) and is read here: the card's float64 seed 0 within 1e-4 m of
+     its line; float32 minus float64 printed. (b) `tools.dynamic_bench`
+     with its defaults (40 frames, 2 objects, window 11): every number
+     finite; its JSON printed. (c) `tools.singlechip_scaling --fast`:
+     every final cost finite; the batched windows (`vmap` of the LM, one
+     CUDA graph) in float64 within 1e-4 of the B = 1 row's and of the
+     unbatched solve's state; the timed float32 rows within 1e-3 of
+     B = 1, of the unbatched solve and of the float64 solve of the same
+     inputs (the unbatched float32 solve's own distance from that
+     float64 solve printed beside them: float32's rounding, PERF.md);
+     the table printed. (d), which runs first (its times are CUDA
+     events, and the CPU probe ends meanwhile): `tools.build_engines`
+     for the five stages at 480x752
+     into build/engines: each exported program against its live function
+     on phase 16's inputs within 1e-4 of the output's scale; bytes,
+     export s, and engine and live ms a call. (e) The RAW slice (30
+     frames, as phase 4, its `lk_track` launches counted in the kernels
+     line) records the frames its estimator receives with
+     `io.feature_serialization.FeatureRecorder`; a fresh float32
+     estimator replays the file: the largest position difference from
+     the live run's outputs within 1e-5 m, and whether it was exact.
+     Both runs sum in a fixed order (`torch.use_deterministic_algorithms`
+     for this sub-phase): with the card's atomic `index_add_` two
+     replays of one file part by centimetres in float32 (PERF.md). (f)
+     `io.native_loader.PrefetchLoader` (4 workers) over phase 12's 60
+     EuRoC PNGs: in order, every frame equal to sequential
+     `decode_image` and to `image_io`'s grey decode; ms a frame of
+     both. (g) The equidistant, MEI and Scaramuzza models: pixel -> ray
+     -> pixel over the 752x480 grid in float64 (within 1e-5 px) and
+     float32 (1e-3 px) on the card, beside the CPU's;
+     `geometry.calibration.calibrate_planar` on tests/test_calibration.py's
+     views on the card within 1e-8 of the CPU's result.
 A capture or replay that fails raises and ends the run (nothing falls
 back to eager execution). Prints one JSON line describing the kernels,
 then, last, the result line {"ok": true, "device": {...}}.
@@ -264,6 +301,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+START = time.perf_counter()    # the script's clock (`stamp`)
 SEED = 0
 FRAMES = 30
 MULTI_FRAMES = 15          # the multi-dispatch phase's depth
@@ -334,6 +372,19 @@ RETRAIN_SCALE = 0.02       # 20c: the four tasks other than stereo
 SHIPPED_GATES = {"solo": (1.6, 0.6),      # tests/test_shipped_weights.py
                  "det3d": (4.0, 0.7)}     # :52-61 (loss, x untrained)
 PRE_FRAMES = 5             # 20e: frames of phase 12's KITTI tree
+PROBE_CPU_THREADS = 4      # 21a: the CPU probe's threads (the card's host
+PROBE_CPU_TIMEOUT_S = 600  # has 8 cores); 21a waits at most this long
+PROBE_ATOL_M = 1e-4        # 21a: card float64 seed 0 against the CPU's
+BATCH_ATOL = 1e-4          # 21c: a batched window's state against B = 1's
+                           # and the unbatched solve's, float64
+BATCH_F32_ATOL = 1e-3      # 21c: the same and against the float64 solve,
+                           # float32 (PERF.md: float32's own rounding)
+ENGINE_RTOL = 1e-4         # 21d: engine against live, of the output's scale
+REPLAY_ATOL_M = 1e-5       # 21e: replayed positions against the live run
+LOADER_WORKERS = 4         # 21f
+CAM_F64_PX = 1e-5          # 21g: grid roundtrip, float64 (tests/test_lie.py)
+CAM_F32_PX = 1e-3          # 21g: float32
+CALIB_ATOL = 1e-8          # 21g: calibrate_planar, card against CPU
 
 
 def fail(msg: str):
@@ -726,14 +777,18 @@ def reset_counts(K, graphs):
 
 def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
               use_megastep=True, pipelined=False, dynamic_mask=None,
-              use_line=False):
+              use_line=False, record=None):
     """Drive the System over the slice's first `frames` (all) frames on one
     path (NAIVE with `dynamic_mask`; LinePoint with `use_line`). Counts
     (kernel launches, step replays) are set to 0 just before the frames
     and read just after. Fails on a count, a feature drought, a
     non-finite output, the ATE gate or (NAIVE) a tracked point inside
     the mask; returns the launch counts, the positions, the step graph
-    and, LinePoint, each frame's segments and the System."""
+    and, LinePoint, each frame's segments and the System. With `record`
+    (a path), every frame the estimator receives is written there by
+    `io.feature_serialization.FeatureRecorder`, and the result also
+    holds the estimator's own outputs and what a fresh estimator needs
+    (its config, extrinsics, noise)."""
     import numpy as np
 
     from dynamic_vins_tpu_torch.ops import lk_level as K
@@ -769,11 +824,26 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     # a pipelined System reaches two calls late
     steady_calls = []
     process_frame = est.process_frame
+    rec, est_outs = None, []
+    if record is not None:
+        import dataclasses
+
+        from dynamic_vins_tpu_torch.io.feature_serialization import \
+            FeatureRecorder
+
+        rec = FeatureRecorder(record)
+        made_with = dict(cfg=dataclasses.replace(est.cfg),
+                         p_bc=est.state.p_bc.copy(),
+                         q_bc=est.state.q_bc.copy(), noise=est.noise)
 
     def counted(frame, imu=None, instances=None):
         steady_calls.append(est.initialized
                             and est.frame_count == est.cfg.num_frames - 1)
-        return process_frame(frame, imu, instances=instances)
+        if rec is not None:
+            rec.record(frame, imu)
+        o = process_frame(frame, imu, instances=instances)
+        est_outs.append(o)
+        return o
 
     est.process_frame = counted
     steady_from = min(STEADY_FROM, frames - 4)
@@ -812,6 +882,8 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     torch.cuda.synchronize()
     steady_ms = 1e3 * (time.perf_counter() - t_steady) / (frames
                                                          - steady_from)
+    if rec is not None:
+        rec.close()
     launches = dict(lk_level=K.launches, lk_track=K.track_launches,
                     plain_levels=K.plain_levels)
     replays = sum(graph.replays.values())
@@ -856,6 +928,8 @@ def run_slice(torch, dev, seq, imgs, imus, name, frames=None,
     out = dict(launches=launches, p=p, graph=graph)
     if use_line:
         out.update(segs=line_segs, system=system)
+    if rec is not None:
+        out.update(est_outs=est_outs, **made_with)
     return out
 
 
@@ -2911,6 +2985,421 @@ def training_phase(torch, dev, card):
     return out
 
 
+def stamp(name):
+    """One line of the script's clock: where a phase ended."""
+    print(f"clock: {name} ended {time.perf_counter() - START:.1f} s after "
+          f"the start", flush=True)
+
+
+def start_cpu_probe():
+    """Phase 21a's float64 baseline: the port's accuracy probe on the
+    CPU (`--platform cpu --x64 --seeds 1`) in a process of its own at
+    nice 19, started at phase 20 (no main-path phase runs beside it) and
+    read at phase 21a. A thread collects its output and the moment it
+    ended; it is killed if the script ends first."""
+    import atexit
+    import os
+    import threading
+
+    env = dict(os.environ, OMP_NUM_THREADS=str(PROBE_CPU_THREADS))
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamic_vins_tpu_torch.tools.accuracy_probe",
+         "--platform", "cpu", "--x64", "--seeds", "1"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 19)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    done = {}
+
+    def collect():
+        done["out"], done["err"] = proc.communicate()
+        done["s"] = time.perf_counter() - t_start
+
+    waiter = threading.Thread(target=collect, daemon=True)
+    waiter.start()
+    return proc, waiter, done
+
+
+def probe_phase(torch, dev, card, probe):
+    """Phase 21a: the accuracy probe on the card, seeds 0-2, float32 and
+    float64, against the CPU's float64 seed 0."""
+    from dynamic_vins_tpu_torch.tools import accuracy_probe
+
+    res = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("float64", torch.float64)):
+        t0 = time.perf_counter()
+        res[name] = accuracy_probe.run_protocol([0, 1, 2], dtype=dtype,
+                                                device=dev)
+        print(f"probe: card {name}: aligned ATE median "
+              f"{res[name][0]:.6f} m, unaligned {res[name][1]:.6f} m, "
+              f"per seed {res[name][2]} ({time.perf_counter() - t0:.1f} s, "
+              f"42 frames, window 11, pipelined); {card}", flush=True)
+    proc, waiter, done = probe
+    t0 = time.perf_counter()
+    waiter.join(timeout=PROBE_CPU_TIMEOUT_S)
+    if waiter.is_alive():
+        fail(f"probe: the CPU probe did not end within "
+             f"{PROBE_CPU_TIMEOUT_S} s of phase 21a")
+    waited = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"probe: the CPU probe exited {proc.returncode}: "
+             f"{done['err'][-2000:]}")
+    cpu = json.loads(done["out"].strip().splitlines()[-1])
+    f32, f64 = res["float32"], res["float64"]
+    gap = abs(f64[2][0] - cpu["ate_aligned"])
+    print(f"probe: CPU float64 (port, subprocess at nice 19, "
+          f"{PROBE_CPU_THREADS} threads, started at phase 20, ended "
+          f"{done['s']:.1f} s after its start; phase 21a waited "
+          f"{waited:.1f} s for it): "
+          f"{json.dumps(cpu)}; card float64 seed 0 {f64[2][0]:.4f} m, "
+          f"|card - CPU| {gap:.2e} m (gate {PROBE_ATOL_M} m, the CPU's "
+          f"line rounds to 4 places); float32 - float64 on the card: "
+          f"aligned {f32[0] - f64[0]:+.6f} m, unaligned "
+          f"{f32[1] - f64[1]:+.6f} m, per seed "
+          f"{[round(a - b, 4) for a, b in zip(f32[2], f64[2])]}", flush=True)
+    if not gap <= PROBE_ATOL_M:
+        fail(f"probe: the card's float64 seed 0 lies {gap} m from the CPU's")
+    import numpy as np
+
+    if not np.isfinite([*f32[:2], *f64[:2], *f32[2], *f64[2]]).all():
+        fail("probe: a non-finite ATE")
+    return dict(card=res, cpu=cpu)
+
+
+def dynamic_bench_phase(card):
+    """Phase 21b: `tools.dynamic_bench` with its defaults on the card."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.tools import dynamic_bench
+
+    t0 = time.perf_counter()
+    res = dynamic_bench.run()
+    d = res["detail"]
+    nums = [res["value"], d["mean_ms"], d["p90_ms"], d["ego_ate_m"]] + [
+        v for e in d["objects_err"].values() for v in e.values()]
+    print(f"dynamic-bench ({time.perf_counter() - t0:.1f} s; {card}):",
+          json.dumps(res), flush=True)
+    if not d["objects_err"] or not np.isfinite(
+            np.array(nums, dtype=float)).all():
+        fail(f"dynamic-bench: a missing or non-finite number: {res}")
+    return res
+
+
+def scaling_phase(card):
+    """Phase 21c: `tools.singlechip_scaling --fast` on the card."""
+    from dynamic_vins_tpu_torch.tools import singlechip_scaling
+
+    t0 = time.perf_counter()
+    res = singlechip_scaling.run(fast=True)
+    print(f"scaling ({time.perf_counter() - t0:.1f} s; {card}):",
+          json.dumps(res), flush=True)
+    for r in res["obs_sweep"]:
+        print(f"scaling: obs rows {r['obs_rows']:6d}: {r['ms_10iter']:8.2f} "
+              f"ms / 10 iterations, final cost {r['final_cost']:.6g}",
+              flush=True)
+    for r in res["lm_sweep"]:
+        print(f"scaling: landmark slots {r['lm_slots']:5d}: "
+              f"{r['ms_10iter']:8.2f} ms / 10 iterations", flush=True)
+    for r in res["batched_windows"]:
+        print(f"scaling: {r['windows']} windows ({r['how']}): "
+              f"{r['ms_10iter']:8.2f} ms, {r['windows_per_s']} windows/s; "
+              f"state vs B = 1 {r['max_state_diff']:.3e}, vs the unbatched "
+              f"solve {r['max_diff_unbatched']:.3e}, vs the float64 solve "
+              f"{r['max_diff_f64']:.3e} (gate {BATCH_F32_ATOL})", flush=True)
+    print(f"scaling: float32 rounding: the unbatched float32 solve lies "
+          f"{res['f32_unbatched_vs_f64']:.3e} from the float64 solve of the "
+          f"same inputs", flush=True)
+    chk = res["batched_check_f64"]
+    print(f"scaling: {chk['windows']} windows ({chk['how']}): state vs "
+          f"B = 1 {chk['max_state_diff']:.3e}, vs the unbatched solve "
+          f"{chk['max_diff_unbatched']:.3e} (gate {BATCH_ATOL})", flush=True)
+    if not max(chk["max_state_diff"], chk["max_diff_unbatched"]) \
+            <= BATCH_ATOL:
+        fail(f"scaling: a batched window's float64 state lies "
+             f"{chk['max_state_diff']} from the B = 1 solve's and "
+             f"{chk['max_diff_unbatched']} from the unbatched one's (gate "
+             f"{BATCH_ATOL})")
+    for r in res["batched_windows"]:
+        worst = max(r["max_state_diff"], r["max_diff_unbatched"],
+                    r["max_diff_f64"])
+        if not worst <= BATCH_F32_ATOL:
+            fail(f"scaling: {r['windows']} float32 windows lie {worst} "
+                 f"from B = 1, the unbatched or the float64 solve (gate "
+                 f"{BATCH_F32_ATOL})")
+    return res
+
+
+def _leaf_err(torch, a, b):
+    """Largest |a - b| over matching leaves, relative to b's scale."""
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    err = 0.0
+    for x, y in zip(la, lb):
+        if x.shape != y.shape:
+            return float("inf")
+        x, y = x.double(), y.double()
+        err = max(err, float((x - y).abs().max()
+                             / y.abs().max().clamp_min(1e-12)))
+    return err
+
+
+def engines_phase(torch, dev, card, imgs, rig):
+    """Phase 21d: `tools.build_engines` for the five stages at 480x752
+    into build/engines; each engine against its live function on phase
+    16's inputs."""
+    from dynamic_vins_tpu_torch.tools import build_engines
+
+    left, right, nxt, boxes = _net_inputs(imgs)
+    hw = left.shape
+    intr = [float(v) for v in rig.intr[:4]]
+    out_dir = REPO / "build" / "engines"
+    t = lambda a: torch.from_numpy(a.astype("float32")).to(dev)
+    res = {}
+    for task in build_engines.TASKS:
+        t0 = time.perf_counter()
+        path = build_engines.export_stage(task, hw, str(out_dir), intr,
+                                          device=dev)
+        export_s = time.perf_counter() - t0
+        fn, params, _ = build_engines.stage_fn(task, hw, intr, device=dev)
+        engine = build_engines.load_engine(path)
+        if task == "reid":
+            from dynamic_vins_tpu_torch.models import pretrained
+
+            inputs = [t(pretrained.load_online("reid", None, device=dev)
+                        .crops(left, boxes))]
+        else:
+            inputs = {"solo": [t(left)], "det3d": [t(left)],
+                      "stereo": [t(left), t(right)],
+                      "flow": [t(left), t(nxt)]}[task]
+        with torch.no_grad():
+            live = fn(params, *inputs)
+            got = engine(params, *inputs)
+            err = _leaf_err(torch, got, live)
+            ms = _timed(torch, lambda: engine(params, *inputs), 10)
+            live_ms = _timed(torch, lambda: fn(params, *inputs), 10)
+        size = Path(path).stat().st_size
+        print(f"engines: {task}: {size} bytes, exported in {export_s:.1f} "
+              f"s; engine {ms:.3f} ms a call, live function {live_ms:.3f} "
+              f"ms (CUDA events, 10 calls after 5); engine vs live "
+              f"{err:.3e} of scale (gate {ENGINE_RTOL}); {card}",
+              flush=True)
+        if not err <= ENGINE_RTOL:
+            fail(f"engines: {task}: the engine differs from its live "
+                 f"function by {err} of scale")
+        res[task] = dict(bytes=size, ms=ms, live_ms=live_ms, err=err)
+    return res
+
+
+def record_replay_phase(torch, dev, card, seq, imgs, imus):
+    """Phase 21e: the RAW slice records its features; a fresh float32
+    estimator replays them."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.estimator.estimator import Estimator
+    from dynamic_vins_tpu_torch.io import feature_serialization as fs
+    from dynamic_vins_tpu_torch.sim import synthetic as sim
+
+    path = REPO / "output" / "chip_smoke_features.jsonl"
+    # the card's index_add_ sums with atomics in a run-dependent order,
+    # and the float32 LM carries that to centimetres over 30 frames (two
+    # replays of one file part by 1.4e-2 m, PERF.md): both runs sum in a
+    # fixed order here, so the gate sees what record/replay changes
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        live = run_slice(torch, dev, seq, imgs, imus, "record",
+                         record=str(path))
+        est = Estimator(live["cfg"], live["p_bc"], live["q_bc"],
+                        noise=live["noise"], device=dev)
+        est.set_initial_pose(seq.gt_p[0].numpy(), seq.gt_q[0].numpy(),
+                             sim.state_at(seq.frame_times[0])[2].numpy())
+        t0 = time.perf_counter()
+        replayed = [est.process_frame(f, i)
+                    for f, i in fs.replay(str(path))]
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = list(zip(live["est_outs"], replayed))
+    if len(replayed) != FRAMES or any((a is None) != (b is None)
+                                      for a, b in pairs):
+        fail(f"record: {len(replayed)} replayed frames, or outputs on "
+             f"other frames than the live run's")
+    both = [(a, b) for a, b in pairs if a is not None]
+    if any(a.timestamp != b.timestamp for a, b in both):
+        fail("record: replayed timestamps differ from the live run's")
+    diff = max(float(np.abs(a.p - b.p).max()) for a, b in both)
+    exact = all(np.array_equal(a.p, b.p) and np.array_equal(a.q, b.q)
+                for a, b in both)
+    print(f"record: {FRAMES} frames recorded ({path.stat().st_size} "
+          f"bytes; deterministic sums in both runs), replayed by a fresh "
+          f"{est.dtype} estimator in "
+          f"{replay_s:.2f} s: {len(both)} outputs, largest position "
+          f"difference from the live run {diff:.3e} m (gate "
+          f"{REPLAY_ATOL_M} m), bit-equal {exact}; kernel launches of the "
+          f"recording run {json.dumps(live['launches'])}; {card}",
+          flush=True)
+    if not diff <= REPLAY_ATOL_M:
+        fail(f"record: the replay lies {diff} m from the live run")
+    return dict(launches=live["launches"], diff=diff, exact=exact)
+
+
+def loader_phase(card):
+    """Phase 21f: `io.native_loader.PrefetchLoader` over phase 12's EuRoC
+    PNG tree against sequential decoding."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.io import image_io, native_loader
+
+    mav = REPO / "output" / "chip_smoke_cli" / "euroc" / "mav0"
+    paths = sorted(str(p) for c in ("cam0", "cam1")
+                   for p in (mav / c / "data").glob("*.png"))
+    if len(paths) != 2 * FRAMES:
+        fail(f"loader: {len(paths)} PNGs under {mav}, not {2 * FRAMES}")
+    t0 = time.perf_counter()
+    seq_imgs = [native_loader.decode_image(p) for p in paths]
+    seq_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    t0 = time.perf_counter()
+    with native_loader.PrefetchLoader(paths, workers=LOADER_WORKERS,
+                                      capacity=8) as loader:
+        got = list(loader)
+    pre_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    bad = [i for i, (k, img) in enumerate(got)
+           if k != i or not np.array_equal(img, seq_imgs[i])
+           or not np.array_equal(img, image_io.imread(paths[i], "grey"))]
+    print(f"loader: {len(paths)} PNGs 752x480 grey, PrefetchLoader "
+          f"({LOADER_WORKERS} workers, capacity 8) {pre_ms:.3f} ms a frame "
+          f"against sequential decode_image {seq_ms:.3f} ms; frames equal "
+          f"to image_io's decode: {len(got) - len(bad)}/{len(paths)}; "
+          f"{card}", flush=True)
+    if len(got) != len(paths) or bad:
+        fail(f"loader: {len(got)} frames, {len(bad)} differ or out of "
+             f"order")
+    return dict(ms=pre_ms, seq_ms=seq_ms)
+
+
+def _calib_views():
+    """tests/test_calibration.py's synthetic views (7x5 board, 8 views),
+    made with the port's camera and Lie functions."""
+    import numpy as np
+    import torch
+
+    from dynamic_vins_tpu_torch.geometry import camera as cam
+    from dynamic_vins_tpu_torch.geometry import lie
+
+    intr = cam.PinholeIntrinsics.make(480.0, 470.0, 320.0, 240.0, 0.05,
+                                      -0.02, 0.001, -0.0005,
+                                      dtype=torch.float64)
+    gx, gy = np.meshgrid(np.arange(7) * 0.03, np.arange(5) * 0.03)
+    obj = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    obj -= obj.mean(axis=0)
+    rng = np.random.default_rng(0)
+    views = []
+    for _ in range(8):
+        rv = rng.normal(scale=0.25, size=3)
+        rv[2] = rng.normal(scale=0.6)
+        tv = np.array([rng.normal(scale=0.05), rng.normal(scale=0.05),
+                       0.5 + 0.3 * rng.random()])
+        q = lie.so3_exp_quat(torch.from_numpy(rv))
+        p3 = torch.from_numpy(np.concatenate(
+            [obj, np.zeros((len(obj), 1))], axis=1))
+        pc = lie.quat_rotate(q[None, :], p3) + torch.from_numpy(tv)
+        views.append((obj.copy(), cam.project(intr, pc).numpy()))
+    return views
+
+
+def camera_phase(torch, dev, card):
+    """Phase 21g: the three non-pinhole models' roundtrips over a 752x480
+    pixel grid on the card, and planar calibration card against CPU."""
+    import numpy as np
+
+    from dynamic_vins_tpu_torch.geometry import calibration as cal
+    from dynamic_vins_tpu_torch.geometry import camera as cam
+
+    poly = [-250.0, 0.0, 1.2e-3, -2.0e-7, 1.0e-10]
+    inv = cam.scaramuzza_fit_inverse(poly, max_rho=450.0)
+    models = dict(
+        equidistant=(cam.EquidistantIntrinsics.make(
+            380.8, 380.3, 376.0, 240.0, k2=-0.01, k3=0.02, k4=-0.02,
+            k5=0.005, dtype=torch.float64),
+            lambda i, x: cam.equidistant_lift(i, x, num_iters=12),
+            cam.equidistant_project),
+        cata=(cam.CataIntrinsics.make(
+            0.9, 360.0, 362.0, 376.0, 240.0, k1=-0.1, k2=0.02, p1=1e-4,
+            p2=-2e-4, dtype=torch.float64),
+            lambda i, x: cam.cata_lift(i, x, num_iters=12),
+            cam.cata_project),
+        scaramuzza=(cam.ScaramuzzaIntrinsics.make(
+            poly, inv, 376.0, 240.0, c=1.001, d=1e-4, e=-2e-4,
+            dtype=torch.float64), cam.scaramuzza_lift,
+            cam.scaramuzza_project))
+    v, u = torch.meshgrid(torch.arange(480, dtype=torch.float64),
+                          torch.arange(752, dtype=torch.float64),
+                          indexing="ij")
+    grid = torch.stack([u, v], -1).reshape(-1, 2)
+    errs = {}
+    for name, (intr, lift, project) in models.items():
+        for dtype, gate in ((torch.float64, CAM_F64_PX),
+                            (torch.float32, CAM_F32_PX)):
+            for where in (dev, "cpu"):
+                i = intr.to(device=where, dtype=dtype)
+                x = grid.to(device=where, dtype=dtype)
+                back = project(i, lift(i, x) * 3.0)
+                err = float((back - x).abs().max())
+                if where == dev:
+                    torch.cuda.synchronize()
+                errs[(name, str(dtype), str(where))] = err
+            key = (name, str(dtype))
+            card_err, cpu_err = errs[key + (str(dev),)], errs[key + ("cpu",)]
+            print(f"cameras: {name} {str(dtype)[6:]}: pixel -> ray -> pixel "
+                  f"over the 752x480 grid, max error card {card_err:.3e} "
+                  f"px, CPU {cpu_err:.3e} px (gate {gate} px)", flush=True)
+            if not card_err <= gate:
+                fail(f"cameras: {name} {dtype}: roundtrip error {card_err} "
+                     f"px on the card")
+    views = _calib_views()
+    t0 = time.perf_counter()
+    on_card = cal.calibrate_planar(views, device=dev)
+    card_s = time.perf_counter() - t0
+    on_cpu = cal.calibrate_planar(views, device="cpu")
+    diff = max(max(abs(getattr(on_card, k) - getattr(on_cpu, k))
+                   for k in ("fx", "fy", "cx", "cy", "rms")),
+               *(float(np.abs(getattr(on_card, k) - getattr(on_cpu, k))
+                       .max()) for k in ("dist", "rvecs", "tvecs")))
+    print(f"cameras: calibrate_planar on the card ({card_s:.2f} s, float64, "
+          f"8 views): fx {on_card.fx:.6f} fy {on_card.fy:.6f} cx "
+          f"{on_card.cx:.6f} cy {on_card.cy:.6f} rms {on_card.rms:.3e} px; "
+          f"largest difference from the CPU's {diff:.3e} (gate {CALIB_ATOL});"
+          f" {card}", flush=True)
+    if not diff <= CALIB_ATOL:
+        fail(f"cameras: calibrate_planar on the card lies {diff} from the "
+             f"CPU's")
+    return dict(roundtrip=errs, calib_diff=diff)
+
+
+def bench_tools_phase(torch, dev, card, seq, imgs, imus, probe):
+    """Phase 21 (see the module docstring)."""
+    out = {}
+    # 21d first: its times are CUDA events, and it leaves the CPU probe
+    # (started at phase 20) time to end before 21a reads it
+    for name, part in (
+            ("engines", lambda: engines_phase(torch, dev, card, imgs,
+                                              seq.rig)),
+            ("probe", lambda: probe_phase(torch, dev, card, probe)),
+            ("dynamic", lambda: dynamic_bench_phase(card)),
+            ("scaling", lambda: scaling_phase(card)),
+            ("record", lambda: record_replay_phase(torch, dev, card, seq,
+                                                   imgs, imus)),
+            ("loader", lambda: loader_phase(card)),
+            ("cameras", lambda: camera_phase(torch, dev, card))):
+        out[name] = part()
+        stamp(f"phase 21 {name}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2920,6 +3409,7 @@ def main():
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda")
     build_phase()
+    stamp("build")
     t0 = time.perf_counter()
     seq, imgs, imus = make_scene(torch, dev)
     dframes, objs = make_dynamic(torch, dev, seq)
@@ -2928,12 +3418,15 @@ def main():
           f"masks a frame), in {time.perf_counter() - t0:.1f} s", flush=True)
     timed = dict(zip(("lk_level", "lk_track", "lk_track_r8"),
                      kernel_phase(torch, dev, imgs, dframes)))
+    stamp("render, phase 3")
     seqr = run_slice(torch, dev, seq, imgs, imus, "slice")
     print("slice: megastep eager vs replay (ms, float32, CUDA events):",
           json.dumps(step_times(torch, seqr.pop("graph"))), flush=True)
     graph_check_phase(torch, dev, seq)
+    stamp("phase 5")
     pipe = run_slice(torch, dev, seq, imgs, imus, "pipelined",
                      pipelined=True)
+    stamp("phase 6")
     p_pipe = pipe["p"]
     # float32 on the card: no gate (see the module docstring)
     print(f"pipelined: max |p - p_sequential| "
@@ -2941,12 +3434,14 @@ def main():
           flush=True)
     multi = run_slice(torch, dev, seq, imgs, imus, "multi-dispatch",
                       frames=MULTI_FRAMES, use_megastep=False)
+    stamp("phase 7")
     import numpy as np
 
     mask = np.zeros((seq.rig.height, seq.rig.width), bool)
     mask[120:360, 250:500] = True    # a fixed "dynamic" rectangle
     naive = run_slice(torch, dev, seq, imgs, imus, "naive",
                       frames=NAIVE_FRAMES, dynamic_mask=mask)
+    stamp("phase 8")
     dyn = run_dynamic(torch, dev, seq, dframes, objs, imus)
     print("dynamic: object solve eager vs replay (ms, float32, CUDA "
           "events):", json.dumps(solve_times(torch, dyn["solve"])),
@@ -2954,26 +3449,40 @@ def main():
     naive_pipe = run_slice(torch, dev, seq, imgs, imus, "naive-pipelined",
                            frames=NAIVE_FRAMES, pipelined=True,
                            dynamic_mask=mask)
+    stamp("phases 9-10")
     dyn_pipe = run_dynamic(torch, dev, seq, dframes, objs, imus,
                            pipelined=True)
     print(f"dynamic-pipelined: steady ms/frame {dyn_pipe['steady_ms']:.2f}"
           f" against the sequential DYNAMIC phase's "
           f"{dyn['steady_ms']:.2f}", flush=True)
+    stamp("phase 11")
     cli = cli_phase(torch, seq, imgs, dframes, objs)
+    stamp("phase 12")
     mono = mono_phase(torch, dev, seq, imgs, imus)
+    stamp("phase 13a")
     mono_reference_phase(torch, dev)
+    stamp("phase 13b")
     resume_phase(torch, dev, seq)
+    stamp("phase 14")
     lines = linepoint_phase(torch, dev, seq, imgs, imus)
+    stamp("phase 15")
     nets_phase(torch, dev, card, imgs, seq.rig)
+    stamp("phase 16")
     accuracy_phase(torch, dev)
+    stamp("phase 17")
     online = online_phase(torch, dev, seq, dframes, imus)
+    stamp("phase 18")
     loop = loop_phase(torch, dev, seq)
+    stamp("phase 19")
+    probe = start_cpu_probe()
     training_phase(torch, dev, card)
-    # launches of every main-path phase (4, 6-13, 15, 18, 19), each
+    stamp("phase 20")
+    tools = bench_tools_phase(torch, dev, card, seq, imgs, imus, probe)
+    # launches of every main-path phase (4, 6-13, 15, 18, 19, 21e), each
     # counted from 0
     launches = dict(lk_level=0, lk_track=0, lk_track_r8=0)
     for r in (seqr, pipe, multi, naive, naive_pipe, dict(launches=mono),
-              lines, *loop["runs"]):
+              lines, *loop["runs"], tools["record"]):
         launches["lk_level"] += r["launches"]["lk_level"]
         launches["lk_track"] += r["launches"]["lk_track"]
     for r in (dyn["launches"], dyn_pipe["launches"], cli,

@@ -18,6 +18,11 @@ A missing file gives None, as with OpenCV. PNGs must be non-interlaced
 with 8 or 16 bits a sample; Adam7 interlacing, bit depths below 8 and
 16-bit colour in "grey" mode raise ValueError, as does a malformed file.
 
+The PNG reading itself (`png_info`, `png_samples`: the chunk walk with
+libpng's CRC and tRNS rules, inflating, unfiltering, Adam7 and 1-16 bit
+samples) is shared with `io/native_loader.py`, which converts the
+samples under the native library's rules instead of OpenCV's.
+
 The PNG row filters are undone by `csrc/png_unfilter.c` (built with the
 host compiler at first use, `ops/build.py`): Average and Paeth are
 sequential along a row, which in Python costs about a second for a
@@ -33,14 +38,21 @@ import ctypes
 import struct
 import zlib
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
 MODES = ("grey", "bgr", "unchanged")
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> samples a pixel
+# PNG colour type -> samples a pixel, and its valid bit depths
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+           4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_COLOUR_SPACE = (b"sRGB", b"cHRM", b"iCCP")
+_MAX_SIDE = 1000000         # libpng's default user width/height limit
 
 _unfilter_fn = None
 
@@ -150,70 +162,185 @@ def _convert(px: np.ndarray, alpha: Optional[np.ndarray], grey: bool,
     return _grey_from_rgb(px)
 
 
+class PngInfo(NamedTuple):
+    """A PNG's header and the chunks before its image data."""
+    width: int
+    height: int
+    depth: int
+    ctype: int
+    interlace: int
+    plte: Optional[np.ndarray]      # [n,3] uint8
+    trns: Optional[bytes]           # the first valid tRNS chunk
+    managed: bool                   # a colour space libpng would apply
+
+    @property
+    def channels(self) -> int:
+        return _CHANNELS[self.ctype]
+
+    @property
+    def colour(self) -> bool:
+        return self.ctype in (2, 3, 6)
+
+
+def png_chunks(data: bytes):
+    """(type, body) of each chunk in order; a critical chunk with a bad
+    CRC raises, an ancillary one is dropped (libpng's defaults)."""
+    pos = 8
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if n >= 1 << 31 or pos + 12 + n > len(data):
+            raise ValueError(f"PNG chunk {kind!r} is truncated")
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        pos += 12 + n
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            if kind[0] & 0x20:             # ancillary
+                continue
+            raise ValueError(f"PNG chunk {kind!r}: CRC error")
+        yield kind, body
+    raise ValueError("PNG without enough image data")
+
+
+def png_info(data: bytes):
+    """(PngInfo, the chunk iterator, the first IDAT's body) as libpng
+    reads them: IHDR first, the first valid tRNS kept, an invalid
+    header, palette or a critical chunk before the image data raises
+    ValueError."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    chunks = png_chunks(data)
+    kind, body = next(chunks)
+    if kind != b"IHDR" or len(body) != 13:
+        raise ValueError("PNG does not start with IHDR")
+    W, H, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB",
+                                                              body)
+    if (ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or comp
+            or filt or interlace > 1 or not 0 < W <= _MAX_SIDE
+            or not 0 < H <= _MAX_SIDE):
+        raise ValueError(f"PNG header: {W}x{H}, depth {depth}, colour "
+                         f"type {ctype} not supported")
+    plte, trns, managed = None, None, False
+    for kind, body in chunks:
+        if kind == b"IDAT":
+            break
+        if kind == b"PLTE":
+            if ctype == 3 and (len(body) % 3 or len(body) > 768):
+                raise ValueError("PNG: invalid palette")
+            plte = np.frombuffer(body[:len(body) // 3 * 3],
+                                 np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS" and trns is None:
+            if ((ctype == 0 and len(body) == 2)
+                    or (ctype == 2 and len(body) == 6)
+                    or (ctype == 3 and plte is not None
+                        and 0 < len(body) <= len(plte))):
+                trns = body
+        elif kind in _COLOUR_SPACE:
+            managed = True
+        elif kind == b"gAMA" and len(body) == 4:
+            g, = struct.unpack(">I", body)
+            managed |= 16 <= g <= 625000000 and abs(g - 100000) > 5000
+        elif kind == b"IEND" or not kind[0] & 0x20:
+            raise ValueError(f"PNG chunk {kind!r} before the image data")
+    if ctype == 3 and plte is None:
+        raise ValueError("palette PNG without PLTE")
+    return (PngInfo(W, H, depth, ctype, interlace, plte, trns, managed),
+            chunks, body)
+
+
+def _passes(info: PngInfo):
+    """[(x0, y0, dx, dy, width, height, row bytes)] of the image's passes
+    (one, or Adam7's seven; an empty pass has no rows)."""
+    out = []
+    for x0, y0, dx, dy in (_ADAM7 if info.interlace else ((0, 0, 1, 1),)):
+        w = (info.width - x0 + dx - 1) // dx
+        h = (info.height - y0 + dy - 1) // dy
+        if w > 0 and h > 0:
+            out.append((x0, y0, dx, dy, w, h,
+                        (w * info.channels * info.depth + 7) // 8))
+    return out
+
+
+def _unpack(rows: np.ndarray, width: int, nc: int, depth: int):
+    """Unfiltered rows [h, stride] -> samples [h, width, nc] (uint8 for
+    depths up to 8, uint16 for 16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)[:, :width * nc] \
+            .reshape(h, width, nc)
+    if depth == 8:
+        return rows[:, :width * nc].reshape(h, width, nc)
+    bits = np.unpackbits(rows, axis=1)[:, :width * nc * depth]
+    vals = bits.reshape(h, width * nc, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (vals * weights).sum(-1).astype(np.uint8).reshape(h, width, nc)
+
+
+def png_samples(info: PngInfo, chunks, first: bytes,
+                unfilter_fn=unfilter) -> np.ndarray:
+    """The image data from `png_info`'s first IDAT on -> samples
+    [H,W,C] in the file's depth (uint8 up to 8 bits, uint16 for 16),
+    Adam7 undone. Inflates only what the image needs, as libpng does."""
+    passes = _passes(info)
+    nc, depth = info.channels, info.depth
+    need = sum(h * (s + 1) for *_, h, s in passes)
+    inflate = zlib.decompressobj()
+    try:
+        raw = inflate.decompress(first, need)
+        while len(raw) < need and not inflate.eof:
+            if inflate.unconsumed_tail:
+                raw += inflate.decompress(inflate.unconsumed_tail,
+                                          need - len(raw))
+                continue
+            kind, body = next(chunks)
+            if kind != b"IDAT":
+                raise ValueError("PNG: not enough image data")
+            raw += inflate.decompress(body, need - len(raw))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from None
+    if len(raw) < need:
+        raise ValueError("PNG: not enough image data")
+    bpp = max(1, nc * depth // 8)
+    out = np.zeros((info.height, info.width, nc),
+                   np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, w, h, stride in passes:
+        n = h * (stride + 1)
+        rows = unfilter_fn(np.frombuffer(raw[pos:pos + n], np.uint8), h,
+                           stride, bpp)
+        pos += n
+        out[y0::dy, x0::dx] = _unpack(rows, w, nc, depth)
+    return out
+
+
 def decode_png(data: bytes, mode: str = "grey",
                unfilter_fn=unfilter) -> np.ndarray:
     """A PNG file's bytes -> the array `cv2.imdecode` gives in `mode`."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not a PNG file (bad signature)")
-    pos, ihdr, plte, trns, idat = 8, None, None, None, []
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if len(body) != n:
-            raise ValueError(f"PNG chunk {kind!r} is truncated")
-        pos += 12 + n
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            trns = body
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None or not idat:
-        raise ValueError("PNG without IHDR or IDAT")
-    W, H, depth, ctype, comp, filt, interlace = ihdr
-    if ctype not in _CHANNELS or comp or filt:
-        raise ValueError(f"PNG colour type {ctype}, compression {comp}, "
-                         f"filter method {filt} not supported")
-    if interlace:
+    info, chunks, first = png_info(data)
+    if info.interlace:
         raise ValueError("interlaced (Adam7) PNGs are not supported")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
-        raise ValueError(f"PNG bit depth {depth} is not supported "
+    if info.depth not in (8, 16):
+        raise ValueError(f"PNG bit depth {info.depth} is not supported "
                          "(8 or 16 bits a sample)")
-    nc = _CHANNELS[ctype]
-    bps = depth // 8
-    stride = W * nc * bps
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = unfilter_fn(raw, H, stride, nc * bps)
-    if bps == 2:
-        px = rows.view(">u2").astype(np.uint16).reshape(H, W, nc)
-    else:
-        px = rows.reshape(H, W, nc)
-
+    px = png_samples(info, chunks, first, unfilter_fn)
+    plte, trns = info.plte, info.trns
     alpha = None
-    if ctype == 3:                              # palette
-        if plte is None:
-            raise ValueError("palette PNG without PLTE")
+    if info.ctype == 3:                         # palette
         idx = px[..., 0]
         if int(idx.max(initial=0)) >= len(plte):
             raise ValueError("palette index out of range")
         if trns is not None:
             a = np.full(len(plte), 255, np.uint8)
-            t = np.frombuffer(trns, np.uint8)[:len(plte)]
-            a[:len(t)] = t
+            a[:len(trns)] = np.frombuffer(trns, np.uint8)
             alpha = a[idx]
         px, grey = plte[idx], False
-    elif ctype in (4, 6):                       # with an alpha channel
-        px, alpha, grey = px[..., :-1], px[..., -1], ctype == 4
+    elif info.ctype in (4, 6):                  # with an alpha channel
+        px, alpha, grey = px[..., :-1], px[..., -1], info.ctype == 4
     else:
-        grey = ctype == 0
+        grey = info.ctype == 0
         if trns is not None and not grey:       # one colour transparent
-            key = np.array(struct.unpack(">HHH", trns[:6]), px.dtype)
+            key = np.array(struct.unpack(">HHH", trns), px.dtype)
             full = np.iinfo(px.dtype).max
             alpha = np.where((px == key).all(axis=2), 0,
                              full).astype(px.dtype)

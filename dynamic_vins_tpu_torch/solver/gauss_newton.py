@@ -73,7 +73,9 @@ def _huber_cost(r2, delta):
 def _segment_sum(vals, seg, n):
     out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, seg, vals)
+    # out of place: `torch.func.vmap` batches it (singlechip_scaling's
+    # batched windows); in place it cannot add batched rows to `out`
+    return out.index_add(0, seg, vals)
 
 
 def _scatter_rows(jacs, cols, D):
@@ -84,8 +86,8 @@ def _scatter_rows(jacs, cols, D):
                + torch.arange(rows, device=jacs.device)[None, :, None])
     row_idx = row_idx.expand(n, rows, k)
     col_idx = cols[:, None, :].expand(n, rows, k)
-    return out.index_put_((row_idx.reshape(-1), col_idx.reshape(-1)),
-                          jacs.reshape(-1), accumulate=True)
+    return out.index_put((row_idx.reshape(-1), col_idx.reshape(-1)),
+                         jacs.reshape(-1), accumulate=True)
 
 
 def _assemble_proj_rows(j_cam, obs, F, D):

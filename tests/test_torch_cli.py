@@ -24,6 +24,10 @@ solve at the same read.
 Also: without `--cpu` the port's CLI runs on the card and raises where
 there is none; `--loop-closure` runs; `--devices 2` raises naming its
 ROADMAP item.
+
+This file runs the EuRoC and the pipelined KITTI cases;
+tests/test_torch_cli_viode_kitti.py runs the VIODE and the sequential
+KITTI ones with this file's fixtures.
 """
 
 import os
@@ -245,10 +249,19 @@ CASES = {"euroc_raw": (euroc_case, []),
          "viode_naive": (viode_case, []),
          "kitti_dynamic": (kitti_case, []),
          "kitti_dynamic_pipelined": (kitti_case, ["--pipelined"])}
+# the cases of this file; tests/test_torch_cli_viode_kitti.py runs the
+# others (one file runs in one xdist worker)
+HERE = ("euroc_raw", "kitti_dynamic_pipelined")
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", HERE)
 def test_cli_matches_jax(tmp_path, monkeypatch, case, capsys):
+    check_case(tmp_path, monkeypatch, case, capsys)
+
+
+def check_case(tmp_path, monkeypatch, case, capsys):
+    """Both CLIs on `case`'s tree: the comparison of the module
+    docstring."""
     make, extra = CASES[case]
     args = make(tmp_path) + extra
     dynamic = "--slam" in args

@@ -29,7 +29,8 @@ def _port_modules():
 def test_scan_covers_every_module():
     """The scans below reach the DYNAMIC slice's modules, the mono
     initialization's, LinePoint's, the perception nets' and their
-    training's too."""
+    training's, the loggers, planar calibration, feature record/replay,
+    the prefetching loader and the bench-side tools too."""
     mods = set(_port_modules())
     for m in ("mot.kalman", "mot.tracker", "io.perception", "io.writers",
               "sim.dynamic_scene", "sim.render", "estimator.box_fit",
@@ -46,7 +47,11 @@ def test_scan_covers_every_module():
               "models.stereo_net", "models.solov2", "models.det3d",
               "models.reid", "training.data", "training.losses",
               "training.trainer", "training.cli",
-              "tools.train_shipped_weights", "tools.precompute"):
+              "tools.train_shipped_weights", "tools.precompute",
+              "utils.logging", "geometry.calibration",
+              "io.feature_serialization", "io.native_loader",
+              "tools.accuracy_probe", "tools.dynamic_bench",
+              "tools.singlechip_scaling", "tools.build_engines"):
         assert f"dynamic_vins_tpu_torch.{m}" in mods, m
 
 
@@ -108,9 +113,13 @@ def test_source_imports_nothing_banned(path):
 
 
 def test_cli_import_loads_no_decoder_library():
-    """The CLI and its readers import without OpenCV, PyYAML or PIL."""
+    """The CLI and its readers, the prefetching loader and the tools
+    import without OpenCV, PyYAML or PIL."""
     code = ("import sys\n"
             "import dynamic_vins_tpu_torch.run\n"
+            "import dynamic_vins_tpu_torch.io.native_loader\n"
+            "from dynamic_vins_tpu_torch.tools import (accuracy_probe, "
+            "build_engines, dynamic_bench, singlechip_scaling)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('cv2', 'yaml', 'PIL'))\n"
             "assert not bad, bad\n")
